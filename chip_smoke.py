@@ -4,24 +4,36 @@
   python3 chip_smoke.py
 
 Phases, one JSON line each (any failure raises and exits non-zero):
-  1 card      nvidia-smi name and power limit, torch's device name
-  2 build     nvcc of every kernel (all at once), registers and spills
-  3 K1        MaxK kernel vs its plain version, bit-equal
-  4 K2        CSR SpMM kernel vs its plain version; vs torch.sparse
-  5 spgemm    maxk_spgemm forward and dx vs the plain composition
-  6 train     SAGE 4x256, k=32, bf16 compute, on the 131072-node
-              synthetic graph: 5 steps and one eval; launch counts
-  7 accuracy  the golden synthetic recipe's mean best_test over 16
-              init seeds vs 0.9847
-  8 kernels   per kernel: launches in phase 6, max error, times, bound;
-              K2 on a graph of the same V and E without hubs; the share
-              of the train step the kernels take
+  1 card         nvidia-smi name and power limit, torch's device name
+  2 build        nvcc of every kernel (all at once), registers and spills
+  3 K1           MaxK kernel vs its plain version, bit-equal
+  4 K4           TopK->CBSR kernel vs its plain version, bit-equal; its
+                 expansion vs K1's y, bit-equal
+  5 K2           CSR SpMM kernel vs its plain version; vs torch.sparse
+  6 K3           CBSR gather kernel vs torch.gather, exact
+  7 spgemm       maxk_spgemm (mask route) forward and dx vs the plain
+                 composition
+  8 spgemm_cbsr  maxk_spgemm on the CBSR route (MAXK_FUSED_MASK=0) vs
+                 the plain composition, and vs the mask route: forward
+                 bit-equal, dx the mask route's rounded to bfloat16
+  9 train        SAGE 4x256, k=32, bf16 compute, on the 131072-node
+                 synthetic graph: 5 steps and one eval; launch counts
+ 10 train_cbsr   the same on the CBSR route: launch counts per step, the
+                 first loss vs phase 9's
+ 11 accuracy     the golden synthetic recipe's mean best_test over 16
+                 init seeds vs 0.9847
+ 12 kernels      per kernel: launches in phase 9 (K1, K2) or 10 (K3,
+                 K4), max error, times, bound; K2 on a graph of the same
+                 V and E without hubs; the share of each train step the
+                 kernels take
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing any result.
 """
 
+import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -52,20 +64,22 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
-    """Median of per-call CUDA-event times, after warm-up."""
+    """Device ms per call: CUDA events around `reps` calls queued back to
+    back, after warm-up. The device first sleeps (~30 ms) while the host
+    queues the calls, so that a short kernel is timed by the device's
+    work and not by the host's launch overhead between two events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    pairs = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -86,18 +100,44 @@ def torch_sparse(g):
                                    check_invariants=False)
 
 
-def sum_error_ratio(out, ref, g, x_abs) -> float:
+def sum_error_ratio(out, ref, g, x_abs, rel: float = 0.0) -> float:
     """max |out - ref| / bound, where bound_r = 2 * n_r * 2**-24 *
     sum_e |v_e| |x[c_e]| is the worst-case float32 error between two
     summation orders of row r's n_r terms. Hub rows (n_r ~ 1e5) make a
-    fixed rtol meaningless; <= 1 is agreement."""
+    fixed rtol meaningless; <= 1 is agreement. `rel` adds a rounding of
+    out after the sum: bound * (1 + rel) + rel * |ref|."""
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr_plain
     from maxk_tpu_torch.ops.graph import DeviceCSR
     g_abs = DeviceCSR(g.indptr, g.indices, g.values.abs(), g.n_nodes)
     n = torch.diff(g.indptr).to(torch.float32)[:, None]
     bound = 2 * n * 2.0 ** -24 * spmm_csr_plain(g_abs, x_abs)
-    diff = (out - ref).abs()
+    # In float64, so that the sum of the two terms does not round below
+    # what they bound.
+    bound = bound.double() * (1 + rel) + rel * ref.double().abs()
+    diff = (out.double() - ref.double()).abs()
     return float((diff / bound.clamp_min(1e-30)).max())
+
+
+def gathered_sectors(selector, d: int, elem_bytes: int) -> int:
+    """Distinct 32-byte sectors of a row-major (V, d) matrix that a
+    gather at ascending per-row selectors touches."""
+    rows = torch.arange(selector.shape[0], device=selector.device)[:, None]
+    sectors = ((rows * d + selector.long()) * elem_bytes // 32).flatten()
+    return int(torch.unique_consecutive(sectors).numel())
+
+
+@contextlib.contextmanager
+def cbsr_env():
+    """MAXK_FUSED_MASK=0 inside, the caller's setting restored after."""
+    prev = os.environ.get("MAXK_FUSED_MASK")
+    os.environ["MAXK_FUSED_MASK"] = "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["MAXK_FUSED_MASK"]
+        else:
+            os.environ["MAXK_FUSED_MASK"] = prev
 
 
 def ptxas_summary(report: str) -> list:
@@ -131,8 +171,12 @@ def main() -> int:
     from maxk_tpu_torch.data.datasets import Dataset, make_synthetic_dataset
     from maxk_tpu_torch.models.models import GraphBundle
     from maxk_tpu_torch.native.build import build_all
+    from maxk_tpu_torch.ops.cbsr import cbsr_expand
+    from maxk_tpu_torch.ops.cuda_gather import (cbsr_gather_forward,
+                                                cbsr_gather_plain)
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
-    from maxk_tpu_torch.ops.cuda_topk import (maxk_forward,
+    from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
+                                              cbsr_topk_plain, maxk_forward,
                                               maxk_forward_plain)
     from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm
@@ -140,6 +184,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    # Every kernel wrapper's launch count, by kernel id.
+    counted = {"k1": maxk_forward, "k2": spmm_csr, "k3": cbsr_gather_forward,
+               "k4": cbsr_topk_forward}
+
+    def counts() -> dict:
+        return {name: fn.launches for name, fn in counted.items()}
 
     # -- 1 card ------------------------------------------------------------
     smi = subprocess.run(
@@ -179,7 +229,29 @@ def main() -> int:
          bit_equal=True, max_abs_err=k1_err)
     del cases
 
-    # -- 4 K2 vs plain, and vs torch.sparse --------------------------------
+    # -- 4 K4 vs plain, and vs K1 ------------------------------------------
+    ties = torch.randint(-3, 4, (v, d), device=dev, generator=gen).float()
+    cases = [("normal", x_full, k) for k in (1, 8, 32, 33, 64, 256)]
+    cases += [("ties", ties, k) for k in (1, 8, 32, 33, 64, 256)]
+    cases += [(f"d{w}", torch.randn(v, w, device=dev, generator=gen), 32)
+              for w in (200, 384)]
+    k4_err = 0.0
+    for name, x, k in cases:
+        values, selector = cbsr_topk_forward(x, k)
+        v_ref, s_ref = cbsr_topk_plain(x, k)
+        check(torch.equal(values.view(torch.int32), v_ref.view(torch.int32))
+              and torch.equal(selector, s_ref),
+              f"K4 differs from its plain version: {name} k={k}")
+        y, _ = maxk_forward(x, k)
+        check(torch.equal(cbsr_expand(values, selector, x.shape[1])
+                          .view(torch.int32), y.view(torch.int32)),
+              f"K4 expanded differs from K1's y: {name} k={k}")
+        k4_err = max(k4_err, float((values - v_ref).abs().max()))
+    emit("k4", cases=[f"{n}:k={k}:{tuple(x.shape)}" for n, x, k in cases],
+         bit_equal=True, expand_bit_equal_to_k1=True, max_abs_err=k4_err)
+    del cases, ties
+
+    # -- 5 K2 vs plain, and vs torch.sparse --------------------------------
     rng = np.random.default_rng(1)
     n_small = 16384
     src = rng.integers(0, n_small, 20 * n_small)
@@ -221,31 +293,83 @@ def main() -> int:
                      "build_seconds": round(graph_s, 3)},
          vs_torch_sparse_f32="allclose rtol=1e-5 atol=1e-5",
          max_abs_err_full_bf16=k2_err)
+    del out_full, lib_full
 
-    # -- 5 maxk_spgemm vs the plain composition ----------------------------
+    # -- 6 K3 vs torch.gather ----------------------------------------------
+    # V*k = 4194272 is not a multiple of the 256-thread block, and every
+    # row samples column 0 and column D-1.
+    v_odd, k = v - 1, 32
+    _, sel = cbsr_topk_forward(x_full[:v_odd].contiguous(), k)
+    sel[:, 0], sel[:, -1] = 0, d - 1
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        dense = x_full[:v_odd].to(dtype)
+        out = cbsr_gather_forward(dense, sel)
+        ref = cbsr_gather_plain(dense, sel)
+        check(out.dtype == dtype and torch.equal(out.view(bits),
+                                                 ref.view(bits)),
+              f"K3 differs from torch.gather at {dtype}")
+    emit("k3", shape={"dense": [v_odd, d], "selector": [v_odd, k]},
+         dtypes=["float32", "bfloat16"], exact=True, max_abs_err=0.0)
+    del sel, dense, out, ref
+
+    # -- 7 maxk_spgemm vs the plain composition ----------------------------
     bundle = GraphBundle.from_csr(csr, norms=("mean",), symmetric=True,
                                   device=dev)
     xg = x_full.clone().requires_grad_(True)
     dy = torch.randn(v, d, device=dev, generator=gen)
-    y = maxk_spgemm(bundle.g_mean, bundle.g_mean_t, xg, 32)
-    y.backward(dy)
+    y_mask = maxk_spgemm(bundle.g_mean, bundle.g_mean_t, xg, 32)
+    y_mask.backward(dy)
+    dx_mask = xg.grad
     y_s, mask = maxk_forward_plain(x_full, 32)
     y_ref = spmm_csr_plain(bundle.g_mean, y_s.to(torch.bfloat16))
     dx_ref = spmm_csr_plain(bundle.g_mean_t, dy.to(torch.bfloat16)) * mask
-    y_ratio = sum_error_ratio(y.detach(), y_ref, bundle.g_mean,
-                              y_s.to(torch.bfloat16).float().abs())
-    dx_ratio = sum_error_ratio(xg.grad, dx_ref, bundle.g_mean_t,
-                               dy.to(torch.bfloat16).float().abs())
+    y_abs = y_s.to(torch.bfloat16).float().abs()
+    dy_abs = dy.to(torch.bfloat16).float().abs()
+    y_ratio = sum_error_ratio(y_mask.detach(), y_ref, bundle.g_mean, y_abs)
+    dx_ratio = sum_error_ratio(dx_mask, dx_ref, bundle.g_mean_t, dy_abs)
     check(y_ratio <= 1.0 and dx_ratio <= 1.0,
           f"maxk_spgemm off its plain composition: error/bound "
           f"y {y_ratio}, dx {dx_ratio}")
     emit("spgemm", shape=[v, d], k=32, compute_dtype="bfloat16",
-         y_max_abs_err=float((y.detach() - y_ref).abs().max()),
-         dx_max_abs_err=float((xg.grad - dx_ref).abs().max()),
+         y_max_abs_err=float((y_mask.detach() - y_ref).abs().max()),
+         dx_max_abs_err=float((dx_mask - dx_ref).abs().max()),
          y_err_over_sum_bound=y_ratio, dx_err_over_sum_bound=dx_ratio)
-    del xg, y, dy, y_s, mask, y_ref, dx_ref
 
-    # -- 6 full-width training ---------------------------------------------
+    # -- 8 maxk_spgemm on the CBSR route -----------------------------------
+    # (a) vs the plain composition, the dx bound widened by the bf16
+    # rounding of the hand-off (2**-8 relative); (b) vs the mask route on
+    # the same x and dy: both hand K2 the same bf16 operand, and the CBSR
+    # dx is the mask route's rounded to bf16 (+0.0 where dropped).
+    xc = x_full.clone().requires_grad_(True)
+    with cbsr_env():
+        y_cbsr = maxk_spgemm(bundle.g_mean, bundle.g_mean_t, xc, 32)
+        y_cbsr.backward(dy)
+    dx_cbsr = xc.grad
+    check(dx_cbsr.dtype == torch.float32, f"CBSR dx is {dx_cbsr.dtype}")
+    yc_ratio = sum_error_ratio(y_cbsr.detach(), y_ref, bundle.g_mean, y_abs)
+    dxc_ratio = sum_error_ratio(dx_cbsr, dx_ref, bundle.g_mean_t, dy_abs,
+                                rel=2.0 ** -8)
+    check(yc_ratio <= 1.0 and dxc_ratio <= 1.0,
+          f"CBSR maxk_spgemm off its plain composition: error/bound "
+          f"y {yc_ratio}, dx {dxc_ratio}")
+    check(torch.equal(y_cbsr.detach().view(torch.int32),
+                      y_mask.detach().view(torch.int32)),
+          "CBSR forward is not bit-equal to the mask route's")
+    dx_mask16 = torch.where(mask.bool(), dx_mask.to(torch.bfloat16).float(),
+                            0.0)
+    check(torch.equal(dx_cbsr.view(torch.int32), dx_mask16.view(torch.int32)),
+          "CBSR dx is not the mask route's dx rounded to bf16")
+    emit("spgemm_cbsr", shape=[v, d], k=32, compute_dtype="bfloat16",
+         y_max_abs_err=float((y_cbsr.detach() - y_ref).abs().max()),
+         dx_max_abs_err=float((dx_cbsr - dx_ref).abs().max()),
+         y_err_over_sum_bound=yc_ratio, dx_err_over_sum_bound=dxc_ratio,
+         dx_bound_rel_bf16=2.0 ** -8, y_bit_equal_to_mask_route=True,
+         dx_bit_equal_to_mask_route_bf16=True)
+    del xg, xc, dy, y_mask, dx_mask, y_cbsr, dx_cbsr, dx_mask16, y_s, mask
+    del y_ref, dx_ref, y_abs, dy_abs
+
+    # -- 9 full-width training ---------------------------------------------
     # The dataset of bench.py: features and split drawn after the (unused)
     # edge values from one seed-123 stream; unit edge values, symmetric.
     rng = np.random.default_rng(123)
@@ -264,42 +388,62 @@ def main() -> int:
         dropout=0.5, norm=True, nonlinear="maxk", w_lr=0.01,
         w_weight_decay=0.0, enable_lookahead=False, seed=97,
         compute_dtype="bfloat16", device="cuda")
-    trainer = Trainer(cfg, ds, graphs=bundle)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
-    maxk_forward.launches = 0
-    spmm_csr.launches = 0
-    steps = []
-    for _ in range(5):
-        k1_before, k2_before = maxk_forward.launches, spmm_csr.launches
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = trainer.train_step()
-        end.record()
-        end.synchronize()
-        steps.append(dict(ms=start.elapsed_time(end), loss=float(loss),
-                          k1=maxk_forward.launches - k1_before,
-                          k2=spmm_csr.launches - k2_before))
-    logits = trainer.eval_logits()
-    torch.cuda.synchronize()
-    launches = {"k1": maxk_forward.launches, "k2": spmm_csr.launches}
-    for s in steps:
-        check(math.isfinite(s["loss"]), f"non-finite loss {s['loss']}")
-        check(s["k2"] == 2 * n_layers,
-              f"K2 launches per step {s['k2']} != {2 * n_layers}")
-        check(s["k1"] >= n_layers, f"K1 launches per step {s['k1']}")
-    check(tuple(logits.shape) == (v, 41)
-          and bool(torch.isfinite(logits).all()), "bad eval logits")
+    def train(per_step: dict):
+        """5 steps and one eval of a fresh Trainer, every count set to 0
+        just before and read just after; each step's launches must be
+        per_step's. Returns (steps, launches, peak GiB)."""
+        trainer = Trainer(cfg, ds, graphs=bundle)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        steps = []
+        for _ in range(5):
+            before = counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = trainer.train_step()
+            end.record()
+            end.synchronize()
+            steps.append(dict(ms=start.elapsed_time(end), loss=float(loss),
+                              **{n: c - before[n]
+                                 for n, c in counts().items()}))
+        logits = trainer.eval_logits()
+        torch.cuda.synchronize()
+        launches = counts()
+        for s in steps:
+            check(math.isfinite(s["loss"]), f"non-finite loss {s['loss']}")
+            check(all(s[n] == c for n, c in per_step.items()),
+                  f"launches per step {s} != {per_step}")
+        check(tuple(logits.shape) == (v, 41)
+              and bool(torch.isfinite(logits).all()), "bad eval logits")
+        return (steps, launches,
+                round(torch.cuda.max_memory_allocated() / 2**30, 3))
+
+    steps, launches, peak = train(
+        {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0})
     median_step_ms = statistics.median(s["ms"] for s in steps)
     emit("train", config="sage 4x256 maxk k=32 norm dropout=0.5 bf16",
          V=v, E=csr.n_edges, steps=steps, median_step_ms=median_step_ms,
-         launches=launches,
-         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
-    del trainer, logits
+         launches=launches, peak_mem_gib=peak)
 
-    # -- 7 golden accuracy ---------------------------------------------------
+    # -- 10 full-width training on the CBSR route --------------------------
+    with cbsr_env():
+        steps_c, launches_c, peak_c = train(
+            {"k1": n_layers, "k2": 2 * n_layers, "k3": n_layers,
+             "k4": n_layers})
+    first, first_c = steps[0]["loss"], steps_c[0]["loss"]
+    check(abs(first_c - first) <= 1e-6 * abs(first),
+          f"CBSR first loss {first_c} != mask route's {first}")
+    median_c_ms = statistics.median(s["ms"] for s in steps_c)
+    emit("train_cbsr", config="sage 4x256 maxk k=32 norm dropout=0.5 bf16 "
+                              "MAXK_FUSED_MASK=0",
+         steps=steps_c, median_step_ms=median_c_ms, launches=launches_c,
+         first_loss_bit_equal=first_c == first, peak_mem_gib=peak_c)
+
+    # -- 11 golden accuracy --------------------------------------------------
     # The golden figure is one draw: one init seed under flax's init and
     # JAX's dropout bits. torch's init and the card's dropout bits draw
     # other numbers from the same seed, and best_test moves by about a
@@ -335,7 +479,10 @@ def main() -> int:
           f"golden mean best_test {mean_test:.4f} is {gap:+.4f} from "
           f"{GOLDEN_BEST_TEST}")
 
-    # -- 8 kernel line -------------------------------------------------------
+    # -- 12 kernel line ------------------------------------------------------
+    # At the train phases' shapes: x (V, 256) f32 into K1 and K4 at k=32,
+    # bf16 operands into K2, and into K3 the bf16 hand-off (V, 256) with
+    # K4's (V, 32) selectors.
     k = 32
     k1_ms = time_ms(lambda: maxk_forward(x_full, k))
     k1_plain = time_ms(lambda: maxk_forward_plain(x_full, k), 1, 5)
@@ -347,6 +494,17 @@ def main() -> int:
     k1_lib = time_ms(topk_scatter)
     k1_bound, k1_by = bound_ms(v * d * (4 + 4 + 1), 33 * v * d)
 
+    k4_ms = time_ms(lambda: cbsr_topk_forward(x_full, k))
+    k4_plain = time_ms(lambda: cbsr_topk_plain(x_full, k), 1, 5)
+
+    def topk_sorted():
+        vals, idx = torch.topk(x_full, k, dim=1, sorted=False)
+        sel, order = idx.sort(dim=1)
+        return vals.gather(1, order), sel
+
+    k4_lib = time_ms(topk_sorted)
+    k4_bound, k4_by = bound_ms(v * d * 4 + v * k * (4 + 4), 33 * v * d)
+
     e = g.n_edges
     k2_ms = time_ms(lambda: spmm_csr(g, x16))
     k2_plain = time_ms(lambda: spmm_csr_plain(g, x16), 1, 5)
@@ -356,42 +514,80 @@ def main() -> int:
     k2_bound, k2_by = bound_ms(
         v * d * 2 + e * 4 + e * 4 + (v + 1) * 8 + v * d * 4, 2 * e * d)
 
+    _, sel = cbsr_topk_forward(x_full, k)
+    sel_long = sel.long()
+    k3_ms = time_ms(lambda: cbsr_gather_forward(x16, sel))
+    k3_plain = time_ms(lambda: cbsr_gather_plain(x16, sel), 1, 5)
+    k3_lib = time_ms(lambda: torch.gather(x16, 1, sel_long))
+    k3_sectors = gathered_sectors(sel, d, 2)
+    k3_bound, k3_by = bound_ms(v * k * (4 + 2) + 32 * k3_sectors, 0)
+
+    # Per layer, the CBSR step's work outside the kernels: the forward's
+    # expansion, and the backward's bf16 cast of A^T @ dy, expansion and
+    # cast back; against the mask route's backward multiply by the mask.
+    values, _ = cbsr_topk_forward(x_full, k)
+    g16 = cbsr_gather_forward(x16, sel)
+    _, mask = maxk_forward(x_full, k)
+    glue = {
+        "cbsr_expand_f32_ms": time_ms(lambda: cbsr_expand(values, sel, d)),
+        "cbsr_backward_cast_expand_cast_ms": time_ms(
+            lambda: (x_full.to(torch.bfloat16),
+                     cbsr_expand(g16, sel, d).to(torch.float32))),
+        "mask_backward_multiply_ms": time_ms(lambda: x_full * mask)}
+    del values, g16, mask
+
     # What the hub rows cost: the same V and E with uniform degrees.
     uni_csr = synthetic_graph(v, 50.0, seed=123, power_law=False)
     uni = DeviceCSR.from_csr(uni_csr.normalize("mean"), dev)
     k2_uniform_ms = time_ms(lambda: spmm_csr(uni, x16))
     del uni
 
-    # Share of the median train step that K1 and K2 take at these times.
-    per_step = steps[-1]
-    kernel_step_ms = per_step["k1"] * k1_ms + per_step["k2"] * k2_ms
+    # Share of each route's median train step that its kernels take.
+    kernel_ms = {"k1": k1_ms, "k2": k2_ms, "k3": k3_ms, "k4": k4_ms}
+
+    def step_share(step: dict, median_ms: float) -> dict:
+        parts = {n: step[n] * t for n, t in kernel_ms.items()}
+        return {"median_step_ms": median_ms,
+                **{f"{n}_ms": t for n, t in parts.items()},
+                "share": sum(parts.values()) / median_ms}
+
+    def entry(name, source, replaces, n, err, ms, plain, bound, by, lib):
+        return {"name": name, "route": "cuda",
+                "source": f"maxk_tpu_torch/csrc/{source}",
+                "replaces": f"maxk_tpu/ops/{replaces}", "launches": n,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
     kernels = [
-        {"name": "maxk_topk", "route": "cuda",
-         "source": "maxk_tpu_torch/csrc/maxk_topk.cu",
-         "replaces": "maxk_tpu/ops/pallas_topk.py:95",
-         "launches": launches["k1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib},
-        {"name": "spmm_csr", "route": "cuda",
-         "source": "maxk_tpu_torch/csrc/spmm_csr.cu",
-         "replaces": "maxk_tpu/ops/pallas_spmm.py:73",
-         "launches": launches["k2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib},
+        entry("maxk_topk", "maxk_topk.cu", "pallas_topk.py:95",
+              launches["k1"], k1_err, k1_ms, k1_plain, k1_bound, k1_by,
+              k1_lib),
+        entry("spmm_csr", "spmm_csr.cu", "pallas_spmm.py:73",
+              launches["k2"], k2_err, k2_ms, k2_plain, k2_bound, k2_by,
+              k2_lib),
+        entry("cbsr_gather", "cbsr_gather.cu", "pallas_gather.py:46",
+              launches_c["k3"], 0.0, k3_ms, k3_plain, k3_bound, k3_by,
+              k3_lib),
+        entry("cbsr_topk", "cbsr_topk.cu", "pallas_topk.py:102",
+              launches_c["k4"], k4_err, k4_ms, k4_plain, k4_bound, k4_by,
+              k4_lib),
     ]
     emit("kernels", shapes={"maxk_topk": f"x ({v}, {d}) f32, k={k}",
                             "spmm_csr": f"A {v}x{v} E={e} f32 values, "
-                                        f"x ({v}, {d}) bf16"},
+                                        f"x ({v}, {d}) bf16",
+                            "cbsr_gather": f"dense ({v}, {d}) bf16, "
+                                           f"selector ({v}, {k}) int32",
+                            "cbsr_topk": f"x ({v}, {d}) f32, k={k}"},
          notes="library: torch.topk+scatter_ (K1), torch.sparse.mm on "
-               "the bf16-rounded x in f32 (K2)",
+               "the bf16-rounded x in f32 (K2), torch.gather with int64 "
+               "indices (K3), torch.topk(sorted=False)+sort+gather (K4); "
+               "launches: phase 9 (K1, K2), phase 10 (K3, K4)",
+         cbsr_gather_sectors=k3_sectors, cbsr_route_glue=glue,
          spmm_csr_uniform={"E": uni_csr.n_edges,
                            "max_degree": int(uni_csr.out_degrees.max()),
                            "ms": k2_uniform_ms},
-         step_kernels={"median_step_ms": median_step_ms,
-                       "k1_ms": per_step["k1"] * k1_ms,
-                       "k2_ms": per_step["k2"] * k2_ms,
-                       "share": kernel_step_ms / median_step_ms})
+         step_kernels=step_share(steps[-1], median_step_ms),
+         step_kernels_cbsr=step_share(steps_c[-1], median_c_ms))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -23,7 +23,7 @@ from torch import nn
 
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR, resolve_device
 from maxk_tpu_torch.ops.maxk import maxk
-from maxk_tpu_torch.ops.spgemm import maxk_spgemm
+from maxk_tpu_torch.ops.spgemm import cbsr_route, maxk_spgemm
 from maxk_tpu_torch.ops.spmm import spmm_t
 
 # Aggregations each model family consumes.
@@ -135,10 +135,16 @@ class SAGE(nn.Module):
     def _aggregate(self, graphs: GraphBundle, x: torch.Tensor):
         """(x for fc_self, x_agg for fc_neigh)."""
         if self.nonlinear == "maxk":
-            # The JAX model runs maxk_spgemm(x) and maxk(x) side by side.
-            # Both apply the same mask to the same x (forward x * mask,
-            # backward g * mask), so one MaxK feeding both branches
-            # computes the same values and gradients with one K1 launch.
+            # The JAX model runs maxk_spgemm(x) and maxk(x) side by side,
+            # both on the pre-MaxK x. On the CBSR route so does this one.
+            # On the mask route both apply the same mask to the same x
+            # (forward x * mask, backward g * mask), so one MaxK feeding
+            # both branches computes the same values and gradients with
+            # one K1 launch.
+            if cbsr_route():
+                return (maxk(x, self.maxk),
+                        maxk_spgemm(graphs.g_mean, graphs.g_mean_t, x,
+                                    self.maxk, self.compute_dtype))
             x = maxk(x, self.maxk)
         else:
             x = torch.relu(x)

@@ -1,1 +1,1 @@
-"""Graph ops: containers, MaxK, SpMM, fused MaxK SpGEMM."""
+"""Graph ops: containers, MaxK, SpMM, CBSR, fused MaxK SpGEMM."""

@@ -1,14 +1,21 @@
-"""K1: exact per-row MaxK, as a CUDA kernel and its plain PyTorch version.
+"""K1 and K4: exact per-row top-k, as CUDA kernels and their plain
+PyTorch versions.
 
-``maxk_forward(x, k)`` returns ``(y, mask)``: ``y = x * mask`` and a 0/1
-uint8 mask of each row's k largest entries, ties at the threshold kept
-first-column-first. It replaces the TPU kernel
+``maxk_forward(x, k)`` (K1) returns ``(y, mask)``: ``y = x * mask`` and a
+0/1 uint8 mask of each row's k largest entries, ties at the threshold
+kept first-column-first. It replaces the TPU kernel
 ``maxk_tpu/ops/pallas_topk.py::_maxk_kernel`` and computes the same bits.
 
-On a CUDA tensor it launches ``csrc/maxk_topk.cu`` (one warp per row,
-32-step threshold descent in registers; see the source for its bound and
-design). On a CPU tensor it runs ``maxk_forward_plain``, the same
-descent in torch ops. There is no fallback between the two.
+``cbsr_topk_forward(x, k)`` (K4) keeps the same k entries and returns
+them compacted as CBSR: ``(values, selector)``, float32 and int32 of
+shape (V, k), selectors ascending per row. It replaces
+``pallas_topk.py::_cbsr_kernel`` and ``::_cbsr_half_kernel``.
+
+On a CUDA tensor each launches its kernel, ``csrc/maxk_topk.cu`` and
+``csrc/cbsr_topk.cu`` (one warp per row, 32-step threshold descent in
+registers; see the sources for the bound and design). On a CPU tensor
+each runs its plain version, the same descent in torch ops. There is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import functools
 
 import torch
 
-MAX_D = 1024   # the kernel keeps a row in registers: 32 values per lane
+MAX_D = 1024   # the kernels keep a row in registers: 32 values per lane
 
 
 def sortable_key(x: torch.Tensor) -> torch.Tensor:
@@ -35,8 +42,8 @@ def sortable_key(x: torch.Tensor) -> torch.Tensor:
     return signed.to(torch.int64) + (1 << 31)
 
 
-def maxk_forward_plain(x: torch.Tensor, k: int):
-    """The kernel's algorithm in torch ops: (y, uint8 mask)."""
+def _keep_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The kernels' bool keep-mask in torch ops: exactly k per row."""
     key = sortable_key(x)
     t = torch.zeros((x.shape[0], 1), dtype=torch.int64, device=x.device)
     for bit in range(31, -1, -1):
@@ -46,15 +53,31 @@ def maxk_forward_plain(x: torch.Tensor, k: int):
     gt = key > t
     tie = key == t
     need = k - gt.sum(dim=1, keepdim=True)
-    keep = gt | (tie & (torch.cumsum(tie, dim=1) <= need))
+    return gt | (tie & (torch.cumsum(tie, dim=1) <= need))
+
+
+def maxk_forward_plain(x: torch.Tensor, k: int):
+    """K1's algorithm in torch ops: (y, uint8 mask)."""
+    keep = _keep_plain(x, k)
     # +0.0 where dropped, as the TPU kernel's y (see maxk_topk.cu).
     return torch.where(keep, x, 0.0), keep.to(torch.uint8)
 
 
+def cbsr_topk_plain(x: torch.Tensor, k: int):
+    """K4's algorithm in torch ops: (values, int32 selector). Each row
+    keeps exactly k columns, so the row-major order of the keep-mask's
+    nonzeros gives each row's selectors ascending."""
+    keep = _keep_plain(x, k)
+    v = x.shape[0]
+    selector = keep.nonzero()[:, 1].to(torch.int32).view(v, k)
+    return x[keep].view(v, k), selector
+
+
 @functools.cache
-def _kernel():
+def _kernel(name: str):
+    """The C entry `name`_f32 of csrc/`name`.cu."""
     from maxk_tpu_torch.native.build import load
-    fn = load("maxk_topk").maxk_topk_f32
+    fn = getattr(load(name), f"{name}_f32")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
@@ -71,11 +94,11 @@ def _check(x: torch.Tensor, k: int) -> None:
                          f"D={x.shape[1]}")
 
 
-def maxk_forward(x: torch.Tensor, k: int):
-    """(y, mask) for a (V, D) float32 x; the kernel on CUDA tensors."""
-    _check(x, k)
-    if x.device.type == "cpu":
-        return maxk_forward_plain(x, k)
+def _launch(name: str, x: torch.Tensor, k: int, out_a: torch.Tensor,
+            out_b: torch.Tensor) -> bool:
+    """Run kernel `name` (maxk_topk or cbsr_topk) on a CUDA x into out_a,
+    out_b; raises on what the kernels do not take. False if V = 0 left
+    nothing to launch."""
     if x.device.type != "cuda":
         raise ValueError(f"maxk: unsupported device {x.device}")
     v, d = x.shape
@@ -84,19 +107,41 @@ def maxk_forward(x: torch.Tensor, k: int):
                          f"yet (ROADMAP: K1 for D > 1024)")
     if not x.is_contiguous():
         raise ValueError("maxk kernel: x must be contiguous")
-    y = torch.empty_like(x)
-    mask = torch.empty((v, d), dtype=torch.uint8, device=x.device)
     if v == 0:
-        return y, mask
+        return False
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(x.data_ptr(), y.data_ptr(), mask.data_ptr(), v, d,
-                        k, stream)
+        err = _kernel(name)(x.data_ptr(), out_a.data_ptr(),
+                            out_b.data_ptr(), v, d, k, stream)
     if err != 0:
-        raise RuntimeError(f"maxk_topk kernel launch failed: CUDA error "
-                           f"{err}")
-    maxk_forward.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return True
+
+
+def maxk_forward(x: torch.Tensor, k: int):
+    """(y, mask) for a (V, D) float32 x; K1 on CUDA tensors."""
+    _check(x, k)
+    if x.device.type == "cpu":
+        return maxk_forward_plain(x, k)
+    y = torch.empty_like(x)
+    mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if _launch("maxk_topk", x, k, y, mask):
+        maxk_forward.launches += 1
     return y, mask
 
 
+def cbsr_topk_forward(x: torch.Tensor, k: int):
+    """(values, selector) for a (V, D) float32 x; K4 on CUDA tensors."""
+    _check(x, k)
+    if x.device.type == "cpu":
+        return cbsr_topk_plain(x, k)
+    v = x.shape[0]
+    values = torch.empty((v, k), dtype=torch.float32, device=x.device)
+    selector = torch.empty((v, k), dtype=torch.int32, device=x.device)
+    if _launch("cbsr_topk", x, k, values, selector):
+        cbsr_topk_forward.launches += 1
+    return values, selector
+
+
 maxk_forward.launches = 0
+cbsr_topk_forward.launches = 0

@@ -1,12 +1,27 @@
-"""Fused MaxK SpGEMM: y = A @ MaxK_k(x), single-device mask route.
+"""Fused MaxK SpGEMM: y = A @ MaxK_k(x), on the mask or the CBSR route.
 
+Mask route (the default):
 forward:  y_s, mask = MaxK(x, k)        # K1, ops/cuda_topk.py
           y         = A @ y_s           # K2, ops/cuda_spmm.py
 backward: dx        = mask * (A^T @ dy) # K2 on the stored transpose
 
-The JAX package also has a CBSR route (top-k values + selectors, sampled
-backward) for its distributed halo exchange and opt-in formulations. It
-is not ported yet: ROADMAP slice 3.
+CBSR route (``MAXK_FUSED_MASK=0``, read at call time, as the JAX package
+reads it at trace time):
+forward:  (v, s) = cbsr_topk(x, k)      # K4
+          y      = A @ expand(v, s)     # K2
+backward: g      = sspmm_sampled(A^T, dy, s)
+                 = (A^T @ dy)[i, s[i, l]]  # K2, then K3 (ops/cbsr.py)
+          dx     = expand(g, s)
+
+The two are the same function: expand(cbsr_topk(x)) == MaxK(x) and
+expand(gather(dS, s), s) == mask * dS. Under bfloat16 compute the CBSR
+backward hands dS to the sampler in bfloat16, as the JAX package does,
+so its dx is the mask route's dx rounded to bfloat16. It comes back in
+x's dtype: the JAX package returns a bfloat16 cotangent there.
+
+Not ported (ROADMAP item 10): the ``"int8_rowscale"`` compute mode, which
+``resolve_compute_dtype`` refuses, and the CBSR-operand gather
+formulation (``CBSR_GATHER_MODE``).
 """
 
 from __future__ import annotations
@@ -15,9 +30,36 @@ import os
 
 import torch
 
+from maxk_tpu_torch.ops.cbsr import cbsr_expand, cbsr_gather, cbsr_topk
 from maxk_tpu_torch.ops.cuda_topk import maxk_forward
 from maxk_tpu_torch.ops.graph import DeviceCSR
 from maxk_tpu_torch.ops.spmm import DTypeLike, resolve_compute_dtype, spmm
+
+
+def cbsr_route() -> bool:
+    """True when MAXK_FUSED_MASK=0 selects the CBSR route."""
+    return os.environ.get("MAXK_FUSED_MASK") == "0"
+
+
+def spgemm_forward_cbsr(g: DeviceCSR, values: torch.Tensor,
+                        selector: torch.Tensor, dim: int,
+                        compute_dtype: DTypeLike = None) -> torch.Tensor:
+    """A @ expand(values, selector): node-level expansion, then K2."""
+    return spmm(g, cbsr_expand(values, selector, dim), compute_dtype)
+
+
+def sspmm_sampled(g_t: DeviceCSR, dy: torch.Tensor, selector: torch.Tensor,
+                  compute_dtype: DTypeLike = None) -> torch.Tensor:
+    """The backward SSpMM, (V, k): g[i, l] = (A^T @ dy)[i, selector[i, l]].
+
+    A^T @ dy runs on K2; unless the compute dtype is float32 it is handed
+    to the sampler (K3) in bfloat16, so the result is bfloat16 then.
+    """
+    cd = resolve_compute_dtype(compute_dtype, dy.dtype)
+    ds = spmm(g_t, dy, cd)
+    if cd != torch.float32:
+        ds = ds.to(torch.bfloat16)
+    return cbsr_gather(ds, selector)
 
 
 class _MaxKSpgemm(torch.autograd.Function):
@@ -34,17 +76,31 @@ class _MaxKSpgemm(torch.autograd.Function):
         return spmm(ctx.g_t, dy, ctx.cd) * mask, None, None, None, None
 
 
+class _MaxKSpgemmCBSR(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, g_t, k, cd):
+        values, selector = cbsr_topk(x, k)
+        ctx.save_for_backward(selector)
+        ctx.g_t, ctx.cd, ctx.dim, ctx.dtype = g_t, cd, x.shape[1], x.dtype
+        return spgemm_forward_cbsr(g, values, selector, x.shape[1], cd)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (selector,) = ctx.saved_tensors
+        dx = cbsr_expand(sspmm_sampled(ctx.g_t, dy, selector, ctx.cd),
+                         selector, ctx.dim)
+        return dx.to(ctx.dtype), None, None, None, None
+
+
 def maxk_spgemm(g: DeviceCSR, g_t: DeviceCSR, x: torch.Tensor, k: int,
                 compute_dtype: DTypeLike = None) -> torch.Tensor:
-    """Fused y = A @ MaxK_k(x) with the mask-route backward.
+    """Fused y = A @ MaxK_k(x), on the CBSR route under MAXK_FUSED_MASK=0
+    and on the mask route otherwise.
 
     g: adjacency (values encode the aggregation normalization); g_t: its
     transpose (g itself for a symmetric matrix); x: (V, D) float32;
     1 <= k <= D.
     """
-    if os.environ.get("MAXK_FUSED_MASK") == "0":
-        raise NotImplementedError(
-            "the CBSR route of maxk_spgemm (MAXK_FUSED_MASK=0) is not "
-            "ported yet: ROADMAP slice 3")
     cd = resolve_compute_dtype(compute_dtype, x.dtype)
-    return _MaxKSpgemm.apply(x, g, g_t, k, cd)
+    fn = _MaxKSpgemmCBSR if cbsr_route() else _MaxKSpgemm
+    return fn.apply(x, g, g_t, k, cd)

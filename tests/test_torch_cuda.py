@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain PyTorch versions.
+"""K1-K4 on the card against their plain PyTorch versions.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the ``cuda_device`` fixture, never at import). Run on a machine with an
@@ -8,18 +8,26 @@ H100 from the repo root:
       tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's
-machine does not need.) Tolerances: K1 is bit-equal to its plain version
-(same integer descent); K2 at float32 agrees at rtol=1e-5, atol=1e-5,
-since CUDA index_add_ sums in another order than the kernel's CSR order.
+machine does not need.) Tolerances: K1 and K4 are bit-equal to their
+plain versions (same integer descent), and K4 expanded is bit-equal to
+K1's y; K3 is exact (it moves bits); K2 at float32 agrees at rtol=1e-5,
+atol=1e-5, since CUDA index_add_ sums in another order than the kernel's
+CSR order.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from maxk_tpu_torch.ops.cbsr import cbsr_expand
+from maxk_tpu_torch.ops.cuda_gather import (cbsr_gather_forward,
+                                            cbsr_gather_plain)
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
-from maxk_tpu_torch.ops.cuda_topk import maxk_forward, maxk_forward_plain
+from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
+                                          cbsr_topk_plain, maxk_forward,
+                                          maxk_forward_plain)
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
+from maxk_tpu_torch.ops.spgemm import maxk_spgemm
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +61,62 @@ def test_k1_bit_equal_to_plain(cuda_device, d, k, kind):
     torch.cuda.synchronize()
     assert torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
     assert torch.equal(mask, m_ref)
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+@pytest.mark.parametrize("k", [1, 8, 32, 33, "D"])
+@pytest.mark.parametrize("d", [128, 200, 256, 1024])
+def test_k4_bit_equal_to_plain_and_to_k1(cuda_device, d, k, kind):
+    k = d if k == "D" else k
+    x = _x(kind, 512, d, seed=d + (0 if k == d else k)).to(cuda_device)
+    values, selector = cbsr_topk_forward(x, k)
+    v_ref, s_ref = cbsr_topk_plain(x, k)
+    y, _ = maxk_forward(x, k)
+    torch.cuda.synchronize()
+    assert values.dtype == torch.float32 and selector.dtype == torch.int32
+    assert torch.equal(values.view(torch.int32), v_ref.view(torch.int32))
+    assert torch.equal(selector, s_ref)
+    assert torch.equal(cbsr_expand(values, selector, d).view(torch.int32),
+                       y.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,k", [(512, 256, 32), (1001, 200, 33),
+                                   (77, 1100, 5)])
+def test_k3_equals_torch_gather(cuda_device, v, d, k, dtype):
+    dense = _x("normal", v, d, seed=k).to(cuda_device).to(dtype)
+    sel = torch.from_numpy(np.random.default_rng(d).integers(
+        0, d, size=(v, k)).astype(np.int32)).to(cuda_device)
+    sel[:, 0], sel[:, -1] = 0, d - 1
+    out = cbsr_gather_forward(dense, sel)
+    ref = cbsr_gather_plain(dense, sel)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and tuple(out.shape) == (v, k)
+    assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       ref.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", None])
+def test_cbsr_route_agrees_with_mask_route(cuda_device, compute_dtype,
+                                           monkeypatch):
+    g = DeviceCSR.from_csr(_graph("power_law", 512, seed=8), cuda_device)
+    x = _x("normal", 512, 64, seed=9).to(cuda_device)
+    dy = _x("normal", 512, 64, seed=10).to(cuda_device)
+    runs = []
+    for route in ("1", "0"):
+        monkeypatch.setenv("MAXK_FUSED_MASK", route)
+        xg = x.clone().requires_grad_(True)
+        y = maxk_spgemm(g, g, xg, 16, compute_dtype)
+        y.backward(dy)
+        runs.append((y.detach(), xg.grad))
+    (y_mask, dx_mask), (y, dx) = runs
+    assert dx.dtype == torch.float32
+    assert torch.equal(y, y_mask)
+    if compute_dtype is None:
+        dx_mask = dx_mask.to(torch.bfloat16).float()
+    assert torch.equal(dx, dx_mask)
 
 
 def _graph(kind, n, seed):
@@ -96,12 +160,18 @@ def test_k2_unaligned_x_uses_scalar_loads(cuda_device):
 def test_launch_counters_count_kernel_launches(cuda_device):
     g = DeviceCSR.from_csr(_graph("uniform", 64, seed=4), cuda_device)
     x = _x("normal", 64, 32, seed=5).to(cuda_device)
-    k1, k2 = maxk_forward.launches, spmm_csr.launches
+    kernels = (maxk_forward, spmm_csr, cbsr_gather_forward,
+               cbsr_topk_forward)
+    before = [fn.launches for fn in kernels]
     maxk_forward(x, 4)
     spmm_csr(g, x)
+    _, sel = cbsr_topk_forward(x, 4)
+    cbsr_gather_forward(x, sel)
     maxk_forward_plain(x, 4)
     spmm_csr_plain(g, x)
-    assert (maxk_forward.launches, spmm_csr.launches) == (k1 + 1, k2 + 1)
+    cbsr_topk_plain(x, 4)
+    cbsr_gather_plain(x, sel)
+    assert [fn.launches for fn in kernels] == [n + 1 for n in before]
 
 
 def test_kernels_reject_what_they_cannot_take(cuda_device):
@@ -113,3 +183,12 @@ def test_kernels_reject_what_they_cannot_take(cuda_device):
     g = DeviceCSR.from_csr(_graph("uniform", 32, seed=7), cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         spmm_csr(g, x[:32, :].t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        cbsr_topk_forward(x.t(), 4)
+    with pytest.raises(ValueError, match="1024"):
+        cbsr_topk_forward(torch.zeros(4, 1056, device=cuda_device), 4)
+    sel = torch.zeros(64, 4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        cbsr_gather_forward(x.t().contiguous().t(), sel)
+    with pytest.raises(ValueError, match="on"):
+        cbsr_gather_forward(x, sel.cpu())

@@ -5,6 +5,11 @@ At compute_dtype=float32 the eval logits agree at rtol=1e-5, atol=1e-5
 and one step's parameter gradients at rtol=1e-4 (atol 1e-6): the MaxK
 masks are identical, so only summation orders (SpMM, matmul, LayerNorm
 statistics) differ.
+
+The same holds on the CBSR route of the fused aggregation, which
+MAXK_FUSED_MASK=0 selects in both packages: the ``cbsr_env`` fixture sets
+it before any flax model is traced and clears JAX's caches around the
+test.
 """
 
 import jax
@@ -18,6 +23,7 @@ from maxk_tpu.models.models import (GraphBundle as JaxGraphBundle,
 from maxk_tpu.train.loop import masked_loss as jax_masked_loss
 from maxk_tpu_torch.models.convert import params_from_flax
 from maxk_tpu_torch.models.models import GraphBundle, build_model
+from maxk_tpu_torch.ops import spgemm as spgemm_mod
 from maxk_tpu_torch.ops.graph import CSRGraph
 from maxk_tpu_torch.train.loop import masked_loss
 
@@ -55,10 +61,15 @@ def _init_pair(data, name, norm, nonlinear):
     return flax_model, graphs, params, model, port_graphs
 
 
-@pytest.mark.parametrize("nonlinear", ["maxk", "relu"])
-@pytest.mark.parametrize("norm", [False, True])
-@pytest.mark.parametrize("name", ["sage", "sage_fused"])
-def test_eval_logits_match_flax(data, name, norm, nonlinear):
+@pytest.fixture
+def cbsr_env(monkeypatch):
+    monkeypatch.setenv("MAXK_FUSED_MASK", "0")
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _check_eval_logits(data, name, norm, nonlinear):
     x = data[2]
     flax_model, graphs, params, model, port_graphs = _init_pair(
         data, name, norm, nonlinear)
@@ -69,9 +80,7 @@ def test_eval_logits_match_flax(data, name, norm, nonlinear):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("norm", [False, True])
-@pytest.mark.parametrize("name", ["sage", "sage_fused"])
-def test_one_step_gradients_match_flax(data, name, norm):
+def _check_one_step_gradients(data, name, norm):
     _, _, x, labels, mask = data
     flax_model, graphs, params, model, port_graphs = _init_pair(
         data, name, norm, "maxk")
@@ -95,6 +104,48 @@ def test_one_step_gradients_match_flax(data, name, norm):
     for key, g in ref.items():
         np.testing.assert_allclose(named[key].grad.numpy(), g.numpy(),
                                    rtol=1e-4, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("nonlinear", ["maxk", "relu"])
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("name", ["sage", "sage_fused"])
+def test_eval_logits_match_flax(data, name, norm, nonlinear):
+    _check_eval_logits(data, name, norm, nonlinear)
+
+
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("name", ["sage", "sage_fused"])
+def test_one_step_gradients_match_flax(data, name, norm):
+    _check_one_step_gradients(data, name, norm)
+
+
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("name", ["sage", "sage_fused"])
+def test_cbsr_route_eval_logits_match_flax(data, name, norm, cbsr_env):
+    _check_eval_logits(data, name, norm, "maxk")
+
+
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("name", ["sage", "sage_fused"])
+def test_cbsr_route_one_step_gradients_match_flax(data, name, norm,
+                                                  cbsr_env):
+    _check_one_step_gradients(data, name, norm)
+
+
+@pytest.mark.parametrize("route", ["mask", "cbsr"])
+@pytest.mark.parametrize("name", ["sage", "sage_fused"])
+def test_models_take_the_selected_route(data, name, route, monkeypatch):
+    if route == "cbsr":
+        monkeypatch.setenv("MAXK_FUSED_MASK", "0")
+    calls = []
+    topk = spgemm_mod.cbsr_topk
+    monkeypatch.setattr(spgemm_mod, "cbsr_topk",
+                        lambda x, k: calls.append(k) or topk(x, k))
+    model = build_model(name, F_IN, HID, LAYERS, CLASSES, maxk=K,
+                        compute_dtype="float32")
+    graphs = GraphBundle.for_model(data[1], name, device="cpu")
+    model(graphs, torch.from_numpy(data[2])).sum().backward()
+    assert calls == ([K] * LAYERS if route == "cbsr" else [])
 
 
 def test_parameter_names_match_flax(data):

@@ -1,9 +1,17 @@
-"""maxk_spgemm (mask route) vs maxk_tpu.maxk_spgemm.
+"""maxk_spgemm, on its mask and CBSR routes, and the CBSR route's parts
+(spgemm_forward_cbsr, sspmm_sampled) vs maxk_tpu.
 
 At compute_dtype=float32 the forward and dx agree at rtol=1e-5 (the
 masks are identical; only the SpMM's summation order differs). At the
 default bfloat16 compute both sides round the same operands, so they
-agree well inside the reference tolerance (mean error < 1e-3).
+agree well inside the reference tolerance (mean error < 1e-3). There the
+JAX package's CBSR route returns a bfloat16 dx for a float32 x and the
+port a float32 one holding the same bf16-rounded values: the comparison
+is in float32.
+
+MAXK_FUSED_MASK=0 selects the CBSR route in both packages. The JAX
+package reads it while tracing, so the ``cbsr_env`` fixture sets it
+before any JAX function is built and clears JAX's caches around the test.
 """
 
 import jax
@@ -13,9 +21,11 @@ import pytest
 import torch
 
 import maxk_tpu
+from maxk_tpu.ops import spgemm as jax_spgemm
 from maxk_tpu.ops.graph import build_tiled_graph
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
-from maxk_tpu_torch.ops.spgemm import maxk_spgemm
+from maxk_tpu_torch.ops.spgemm import (maxk_spgemm, spgemm_forward_cbsr,
+                                       sspmm_sampled)
 
 from conftest import random_graph
 
@@ -25,6 +35,30 @@ def graph(request):
     g = random_graph(300, 10.0, seed=21,
                      power_law=request.param == "power_law")
     return g.normalize("mean")
+
+
+@pytest.fixture
+def cbsr_env(monkeypatch):
+    monkeypatch.setenv("MAXK_FUSED_MASK", "0")
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _port_graphs(graph):
+    t = graph.transpose()
+    return (DeviceCSR.from_csr(
+        CSRGraph(graph.indptr, graph.indices, graph.values), "cpu"),
+        DeviceCSR.from_csr(CSRGraph(t.indptr, t.indices, t.values), "cpu"))
+
+
+def _run_port(graph, x, dy, k, compute_dtype):
+    dev, dev_t = _port_graphs(graph)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = maxk_spgemm(dev, dev_t, xt, k, compute_dtype)
+    y.backward(torch.from_numpy(dy))
+    assert y.dtype == xt.grad.dtype == torch.float32
+    return y.detach().numpy(), xt.grad.numpy()
 
 
 def _run_both(graph, k, d, compute_dtype):
@@ -37,17 +71,8 @@ def _run_both(graph, k, d, compute_dtype):
         lambda a: maxk_tpu.maxk_spgemm(g, g_t, a, k, compute_dtype=cd),
         jnp.asarray(x))
     (dx_ref,) = vjp(jnp.asarray(dy))
-
-    dev = DeviceCSR.from_csr(
-        CSRGraph(graph.indptr, graph.indices, graph.values), "cpu")
-    t = graph.transpose()
-    dev_t = DeviceCSR.from_csr(CSRGraph(t.indptr, t.indices, t.values),
-                               "cpu")
-    xt = torch.from_numpy(x).requires_grad_(True)
-    y = maxk_spgemm(dev, dev_t, xt, k, compute_dtype)
-    y.backward(torch.from_numpy(dy))
-    return (y.detach().numpy(), np.asarray(y_ref), xt.grad.numpy(),
-            np.asarray(dx_ref))
+    y, dx = _run_port(graph, x, dy, k, compute_dtype)
+    return y, np.asarray(y_ref), dx, np.asarray(dx_ref, np.float32)
 
 
 @pytest.mark.parametrize("k,d", [(8, 64), (32, 64), (32, 256)])
@@ -65,8 +90,77 @@ def test_maxk_spgemm_default_bf16_matches_jax(graph):
     assert np.mean(np.abs(dx - dx_ref)) < 1e-3
 
 
-def test_cbsr_route_not_ported(monkeypatch):
+@pytest.mark.parametrize("k,d", [(8, 64), (32, 64), (32, 256)])
+def test_maxk_spgemm_cbsr_f32_matches_jax(graph, k, d, cbsr_env):
+    y, y_ref, dx, dx_ref = _run_both(graph, k, d, "float32")
+    np.testing.assert_allclose(y, y_ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(dx, dx_ref, rtol=1e-5, atol=1e-6)
+    assert np.count_nonzero(dx, axis=1).max() <= k
+
+
+def test_maxk_spgemm_cbsr_default_bf16_matches_jax(graph, cbsr_env):
+    y, y_ref, dx, dx_ref = _run_both(graph, 16, 128, None)
+    assert np.mean(np.abs(y - y_ref)) < 1e-3
+    assert np.mean(np.abs(dx - dx_ref)) < 1e-3
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", None])
+def test_cbsr_and_mask_routes_agree(graph, compute_dtype, monkeypatch):
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(graph.n_nodes, 64)).astype(np.float32)
+    dy = rng.normal(size=(graph.n_nodes, 64)).astype(np.float32)
+    y_mask, dx_mask = _run_port(graph, x, dy, 16, compute_dtype)
     monkeypatch.setenv("MAXK_FUSED_MASK", "0")
+    y, dx = _run_port(graph, x, dy, 16, compute_dtype)
+    # Both routes hand K2 the same operand, so the forward is exact; the
+    # CBSR backward rounds A^T @ dy to bfloat16 under bfloat16 compute.
+    np.testing.assert_array_equal(y, y_mask)
+    if compute_dtype is None:
+        dx_mask = torch.from_numpy(dx_mask).to(torch.bfloat16).float()
+    np.testing.assert_array_equal(dx, np.asarray(dx_mask))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", None])
+def test_spgemm_forward_cbsr_matches_jax(graph, compute_dtype):
+    d, k = 96, 12
+    x = np.random.default_rng(9).normal(
+        size=(graph.n_nodes, d)).astype(np.float32)
+    v, s = maxk_tpu.cbsr_topk(jnp.asarray(x), k)
+    cd = None if compute_dtype is None else jnp.dtype(compute_dtype)
+    ref = np.asarray(jax_spgemm.spgemm_forward_cbsr(
+        build_tiled_graph(graph), v, s, d, compute_dtype=cd))
+    out = spgemm_forward_cbsr(
+        _port_graphs(graph)[0], torch.from_numpy(np.array(v)),
+        torch.from_numpy(np.array(s)), d, compute_dtype).numpy()
+    if compute_dtype is None:
+        assert np.mean(np.abs(out - ref)) < 1e-3
+    else:
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", None])
+def test_sspmm_sampled_matches_jax(graph, compute_dtype):
+    d, k = 96, 12
+    rng = np.random.default_rng(8)
+    dy = rng.normal(size=(graph.n_nodes, d)).astype(np.float32)
+    _, s = maxk_tpu.cbsr_topk(jnp.asarray(
+        rng.normal(size=(graph.n_nodes, d)).astype(np.float32)), k)
+    cd = None if compute_dtype is None else jnp.dtype(compute_dtype)
+    ref = jax_spgemm.sspmm_sampled(build_tiled_graph(graph.transpose()),
+                                   jnp.asarray(dy), s, compute_dtype=cd)
+    out = sspmm_sampled(_port_graphs(graph)[1], torch.from_numpy(dy),
+                        torch.from_numpy(np.array(s)), compute_dtype)
+    # Both hand the sampler bfloat16 under bfloat16 compute.
+    assert str(out.dtype).split(".")[-1] == str(ref.dtype)
+    out, ref = out.float().numpy(), np.asarray(ref, np.float32)
+    if compute_dtype is None:
+        assert np.mean(np.abs(out - ref)) < 1e-3
+    else:
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_int8_rowscale_not_ported():
     dev = DeviceCSR.from_csr(CSRGraph.from_coo([0, 1], [1, 0], 2), "cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        maxk_spgemm(dev, dev, torch.zeros(2, 4), 2)
+    v, s = torch.ones(2, 1), torch.zeros(2, 1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        spgemm_forward_cbsr(dev, v, s, 4, "int8_rowscale")

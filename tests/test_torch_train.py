@@ -1,7 +1,8 @@
 """The port's training stack vs maxk_tpu.train, plus its own contracts.
 
 The 20-step loss trajectory (float32 compute, dropout 0, flax params
-carried across) agrees with maxk_tpu.train.loop.Trainer at rel <= 1e-4:
+carried across) agrees with maxk_tpu.train.loop.Trainer at rel <= 1e-4,
+and so does a 5-step one on the CBSR route (MAXK_FUSED_MASK=0):
 both run the same Adam on gradients that agree to ~1e-6. A top-k
 near-tie can flip one MaxK entry once parameters have drifted by that
 much: with norm off, lookahead and weight decay 5e-4 on this dataset,
@@ -89,6 +90,31 @@ def test_loss_trajectory_matches_jax(tmp_path, norm, lookahead, wd):
         state, loss = ref._jit_step(state, rng)
         ref_losses.append(float(loss))
         losses.append(float(tr.train_step()))
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
+    assert losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("model", ["sage", "sage_fused"])
+def test_cbsr_route_loss_trajectory_matches_jax(tmp_path, monkeypatch,
+                                                model):
+    # MAXK_FUSED_MASK=0 before either trainer is built: the JAX package
+    # reads it while tracing its step.
+    monkeypatch.setenv("MAXK_FUSED_MASK", "0")
+    jax.clear_caches()
+    jax_ds, ds = _dataset()
+    cfg = _Cfg(path=str(tmp_path), model=model, epochs=5)
+    ref = JaxTrainer(cfg, jax_ds)
+    state = ref.init_state()
+    tr = Trainer(cfg, ds)
+    tr.model.load_flax_params(jax.tree.map(np.asarray, state.params))
+
+    ref_losses, losses = [], []
+    rng = jax.random.PRNGKey(0)
+    for _ in range(cfg.epochs):
+        state, loss = ref._jit_step(state, rng)
+        ref_losses.append(float(loss))
+        losses.append(float(tr.train_step()))
+    jax.clear_caches()
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
     assert losses[-1] < losses[0]
 

@@ -9,7 +9,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   3 K1           MaxK kernel vs its plain version, bit-equal
   4 K4           TopK->CBSR kernel vs its plain version, bit-equal; its
                  expansion vs K1's y, bit-equal
-  5 K2           CSR SpMM kernel vs its plain version; vs torch.sparse
+  5 K2           CSR SpMM kernel vs its plain version, on a small graph
+                 and on split-row boundary graphs (a star row; rows of
+                 S-1, S, S+1, 2S+1 edges); two calls bit-identical on the
+                 hub graph; vs torch.sparse (at f32 also on the star and
+                 split-boundary graphs)
   6 K3           CBSR gather kernel vs torch.gather, exact
   7 spgemm       maxk_spgemm (mask route) forward and dx vs the plain
                  composition
@@ -23,14 +27,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  11 accuracy     the golden synthetic recipe's mean best_test over 16
                  init seeds vs 0.9847
  12 kernels      per kernel: launches in phase 9 (K1, K2) or 10 (K3,
-                 K4), max error, times, bound; K2 on a graph of the same
-                 V and E without hubs; the share of each train step the
+                 K4), max error, times, bound; K2 at bf16 and f32 x on
+                 the hub graph and on a graph of the same V and E without
+                 hubs, its sweep over segment length S, and the L2-to-SM
+                 rate its gathers imply; the share of each train step the
                  kernels take
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing any result.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -107,8 +114,7 @@ def sum_error_ratio(out, ref, g, x_abs, rel: float = 0.0) -> float:
     fixed rtol meaningless; <= 1 is agreement. `rel` adds a rounding of
     out after the sum: bound * (1 + rel) + rel * |ref|."""
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr_plain
-    from maxk_tpu_torch.ops.graph import DeviceCSR
-    g_abs = DeviceCSR(g.indptr, g.indices, g.values.abs(), g.n_nodes)
+    g_abs = dataclasses.replace(g, values=g.values.abs())
     n = torch.diff(g.indptr).to(torch.float32)[:, None]
     bound = 2 * n * 2.0 ** -24 * spmm_csr_plain(g_abs, x_abs)
     # In float64, so that the sum of the two terms does not round below
@@ -178,7 +184,8 @@ def main() -> int:
     from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
                                               cbsr_topk_plain, maxk_forward,
                                               maxk_forward_plain)
-    from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
+    from maxk_tpu_torch.ops.graph import (SEG_LEN, CSRGraph, DeviceCSR,
+                                          SegmentPlan)
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm
     from maxk_tpu_torch.train.loop import Trainer
 
@@ -272,6 +279,42 @@ def main() -> int:
                    - spmm_csr_plain(small, xs16)).abs().mean())
     check(mae16 < 1e-3, f"K2 bf16 mean error {mae16} >= 1e-3")
 
+    # Split-row boundaries at the plan's S: a star row holding every edge,
+    # and rows of S-1, S, S+1 and 2S+1 edges; the rest of each graph's
+    # rows are empty or short. Held to each row's two-order bound against
+    # the plain version, and at f32 against torch.sparse too, which sums
+    # without the plan.
+    n_b = 4096
+    star_src = np.zeros(40 * SEG_LEN + 3, np.int64)
+    lens = (SEG_LEN - 1, SEG_LEN, SEG_LEN + 1, 2 * SEG_LEN + 1)
+    bnd_src = np.concatenate(
+        [np.full(m, 7 * (i + 1)) for i, m in enumerate(lens)]
+        + [rng.integers(100, n_b // 2, 8 * n_b)])
+    boundary = {}
+    for name, src_b in (("star", star_src), ("boundary", bnd_src)):
+        gb = DeviceCSR.from_csr(CSRGraph.from_coo(
+            src_b, rng.integers(0, n_b, len(src_b)).astype(np.int32), n_b,
+            rng.uniform(size=len(src_b)).astype(np.float32)), dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for w in (256, 200):
+                xb = torch.randn(n_b, w, device=dev, generator=gen).to(dtype)
+                out_b = spmm_csr(gb, xb)
+                ratio = sum_error_ratio(out_b, spmm_csr_plain(gb, xb), gb,
+                                        xb.float().abs())
+                check(ratio <= 1.0 and bool(torch.all(
+                    out_b[torch.diff(gb.indptr) == 0] == 0)),
+                      f"K2 off its plain version on the {name} graph, "
+                      f"{dtype} D={w}: error/bound {ratio}")
+                boundary[f"{name}:{str(dtype)[6:]}:D={w}"] = ratio
+                if dtype == torch.float32:
+                    lib_b = torch.sparse.mm(torch_sparse(gb), xb)
+                    ratio = sum_error_ratio(out_b, lib_b, gb, xb.abs())
+                    check(ratio <= 1.0,
+                          f"K2 off torch.sparse on the {name} graph, "
+                          f"D={w}: error/bound {ratio}")
+                    boundary[f"{name}:float32:D={w}:torch_sparse"] = ratio
+        boundary[f"{name}:partials_rows"] = gb.plan.n_partials
+
     t0 = time.perf_counter()
     csr = synthetic_graph(v, 50.0, seed=123)
     graph_s = time.perf_counter() - t0
@@ -282,18 +325,31 @@ def main() -> int:
     lib_full = torch.sparse.mm(torch_sparse(g), x_full)
     torch.testing.assert_close(out_full, lib_full, rtol=1e-5, atol=1e-5)
     x16 = x_full.to(torch.bfloat16)
-    k2_err = float((spmm_csr(g, x16) - spmm_csr_plain(g, x16)).abs().max())
+    out16 = spmm_csr(g, x16)
+    k2_err = float((out16 - spmm_csr_plain(g, x16)).abs().max())
     check(k2_err < 1e-4, f"K2 full-size bf16 max error {k2_err}")
+    # The split rows are summed in a fixed order: every call, the same bits.
+    for xx, first in ((x16, out16), (x_full, out_full)):
+        check(torch.equal(spmm_csr(g, xx).view(torch.int32),
+                          first.view(torch.int32)),
+              f"two K2 calls differ on the hub graph ({xx.dtype})")
     deg = np.diff(csr.indptr)
     emit("k2", small_graph={"V": n_small, "E": small.n_edges,
                             "zero_degree_rows": int(
                                 (torch.diff(small.indptr) == 0).sum())},
          f32_rtol=1e-5, bf16_mean_abs_err=mae16,
+         split_boundaries={"S": SEG_LEN, "V": n_b,
+                           "err_over_sum_bound": boundary},
          full_graph={"V": v, "E": csr.n_edges, "max_degree": int(deg.max()),
+                     "segments": g.plan.n_segments,
+                     "split_rows": int(
+                         (torch.diff(g.plan.fin_ptr) > 0).sum()),
+                     "partials_rows": g.plan.n_partials,
                      "build_seconds": round(graph_s, 3)},
          vs_torch_sparse_f32="allclose rtol=1e-5 atol=1e-5",
+         two_calls_bit_identical=["bfloat16", "float32"],
          max_abs_err_full_bf16=k2_err)
-    del out_full, lib_full
+    del out_full, lib_full, out16
 
     # -- 6 K3 vs torch.gather ----------------------------------------------
     # V*k = 4194272 is not a multiple of the 256-thread block, and every
@@ -507,12 +563,22 @@ def main() -> int:
 
     e = g.n_edges
     k2_ms = time_ms(lambda: spmm_csr(g, x16))
+    k2_f32_ms = time_ms(lambda: spmm_csr(g, x_full))
     k2_plain = time_ms(lambda: spmm_csr_plain(g, x16), 1, 5)
     x16_as_f32 = x16.float()
     sparse = torch_sparse(g)
     k2_lib = time_ms(lambda: torch.sparse.mm(sparse, x16_as_f32))
     k2_bound, k2_by = bound_ms(
         v * d * 2 + e * 4 + e * 4 + (v + 1) * 8 + v * d * 4, 2 * e * d)
+    # K2's sweep over segment length S on the hub graph, at bf16 x.
+    sweep_s = []
+    for seg_len in (128, 256, 512, 1024):
+        gs = dataclasses.replace(
+            g, plan=SegmentPlan.build(g_mean_csr, seg_len, dev))
+        sweep_s.append({"S": seg_len, "segments": gs.plan.n_segments,
+                        "partials_bytes": gs.plan.n_partials * d * 4,
+                        "ms": time_ms(lambda: spmm_csr(gs, x16))})
+        del gs
 
     _, sel = cbsr_topk_forward(x_full, k)
     sel_long = sel.long()
@@ -540,6 +606,7 @@ def main() -> int:
     uni_csr = synthetic_graph(v, 50.0, seed=123, power_law=False)
     uni = DeviceCSR.from_csr(uni_csr.normalize("mean"), dev)
     k2_uniform_ms = time_ms(lambda: spmm_csr(uni, x16))
+    k2_uniform_f32_ms = time_ms(lambda: spmm_csr(uni, x_full))
     del uni
 
     # Share of each route's median train step that its kernels take.
@@ -585,7 +652,21 @@ def main() -> int:
          cbsr_gather_sectors=k3_sectors, cbsr_route_glue=glue,
          spmm_csr_uniform={"E": uni_csr.n_edges,
                            "max_degree": int(uni_csr.out_degrees.max()),
-                           "ms": k2_uniform_ms},
+                           "ms": k2_uniform_ms,
+                           "ms_f32": k2_uniform_f32_ms},
+         spmm_csr_hub={
+             "S": SEG_LEN,
+             "partials_bytes": g.plan.n_partials * d * 4,
+             "ms": k2_ms, "ms_f32": k2_f32_ms,
+             "torch_sparse_f32_ms": k2_lib,
+             "hub_over_uniform": k2_ms / k2_uniform_ms,
+             "hub_over_uniform_f32": k2_f32_ms / k2_uniform_f32_ms,
+             "faster_than_torch_sparse_f32": k2_f32_ms < k2_lib,
+             # Each edge pulls a row of x through L2 once.
+             "gathered_bytes": e * d * 2, "gathered_bytes_f32": e * d * 4,
+             "gathered_tb_per_s": e * d * 2 / k2_ms / 1e9,
+             "gathered_tb_per_s_f32": e * d * 4 / k2_f32_ms / 1e9},
+         spmm_csr_sweep_S=sweep_s,
          step_kernels=step_share(steps[-1], median_step_ms),
          step_kernels_cbsr=step_share(steps_c[-1], median_c_ms))
 

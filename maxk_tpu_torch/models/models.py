@@ -52,7 +52,8 @@ class GraphBundle:
         """symmetric=True asserts A == A^T including edge values. Then the
         sum/sym matrices are their own transpose (shared, not rebuilt),
         and the mean transpose (D^-1 A)^T = A D^-1 keeps A's structure:
-        a column-degree rescale of the values instead of a transpose."""
+        a column-degree rescale of the values instead of a transpose,
+        sharing A's device arrays and segment plan."""
         device = resolve_device(device)
         built = {}
         for norm in norms:
@@ -62,9 +63,10 @@ class GraphBundle:
                 t = built[f"g_{norm}"]
             elif symmetric and norm == "mean":
                 deg = np.maximum(np.diff(csr.indptr), 1).astype(np.float32)
-                t = DeviceCSR.from_csr(csr.with_values(
-                    (csr.values / deg[csr.indices]).astype(np.float32)),
-                    device)
+                t = dataclasses.replace(
+                    built[f"g_{norm}"], values=torch.from_numpy(
+                        (csr.values / deg[csr.indices]).astype(np.float32)
+                    ).to(device))
             else:
                 t = DeviceCSR.from_csr(base.transpose(), device)
             built[f"g_{norm}_t"] = t

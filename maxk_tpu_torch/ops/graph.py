@@ -2,9 +2,10 @@
 
 ``CSRGraph`` is a numpy copy of the JAX package's host CSR (same
 constructors, transforms and normalizations, bit-equal outputs). The
-device form is plain CSR arrays on a torch device: the SpMM kernel
-(``csrc/spmm_csr.cu``) walks rows of the CSR directly, so the TPU's
-row-block edge tiles have no counterpart here.
+device form is plain CSR arrays on a torch device plus K2's segment plan
+(``SegmentPlan``): the SpMM kernel (``csrc/spmm_csr.cu``) walks row
+segments of at most ``SEG_LEN`` edges, so the TPU's row-block edge tiles
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -14,6 +15,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from maxk_tpu_torch.data.warp4 import generate_warp4
+
+# K2's segment length: a warp of the SpMM kernel sums at most this many
+# consecutive edges of one row. Chosen by the sweep over
+# {128, 256, 512, 1024} in chip_smoke.py's kernel phase (PERF.md).
+SEG_LEN = 256
 
 
 def resolve_device(device=None) -> torch.device:
@@ -147,22 +155,84 @@ class CSRGraph:
 
 
 @dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """K2's work list: every row's edges cut into segments of at most
+    ``seg_len`` consecutive edges (the warp4 split at that length).
+
+    A row of one segment is written by that segment. A row of several
+    (a split row) has each segment write float32 partial sums to its own
+    row of a workspace, and a second pass sums them in segment order.
+    That pass also writes the zero-degree rows, which have no segment,
+    as zeros: they are its rows with an empty range of partials.
+    """
+
+    seg_len: int
+    seg_row: torch.Tensor     # (n_seg,) int32, in row order
+    seg_start: torch.Tensor   # (n_seg,) int64, first edge of the segment
+    seg_slot: torch.Tensor    # (n_seg,) int32, its partials row, or -1
+    fin_row: torch.Tensor     # (n_fin,) int32: split rows, then empty rows
+    fin_ptr: torch.Tensor     # (n_fin+1,) int64 ranges of partials rows
+    n_partials: int
+
+    @staticmethod
+    def build(csr: CSRGraph, seg_len: int = SEG_LEN,
+              device="cpu") -> "SegmentPlan":
+        if seg_len < 1:
+            raise ValueError(f"segment length must be >= 1, got {seg_len}")
+        row = generate_warp4(csr, seg_len)[:, 0].astype(np.int64)
+        n_seg = row.shape[0]
+        per_row = np.bincount(row, minlength=csr.n_nodes)
+        first = np.cumsum(per_row) - per_row
+        # warp4's loc is int32; the start is recomputed in int64 so that
+        # E may pass 2**31.
+        start = csr.indptr[row] + (np.arange(n_seg) - first[row]) * seg_len
+        split = per_row > 1
+        in_split = split[row]
+        slot = np.full(n_seg, -1, np.int32)
+        slot[in_split] = np.arange(int(in_split.sum()), dtype=np.int32)
+        split_rows = np.nonzero(split)[0]
+        fin_row = np.concatenate([split_rows, np.nonzero(per_row == 0)[0]])
+        counts = np.zeros(fin_row.shape[0], np.int64)
+        counts[:split_rows.shape[0]] = per_row[split_rows]
+        fin_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+        def dev(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+                device)
+
+        return SegmentPlan(
+            seg_len=seg_len, seg_row=dev(row, np.int32),
+            seg_start=dev(start, np.int64), seg_slot=dev(slot, np.int32),
+            fin_row=dev(fin_row, np.int32), fin_ptr=dev(fin_ptr, np.int64),
+            n_partials=int(fin_ptr[-1]))
+
+    @property
+    def n_segments(self) -> int:
+        return int(self.seg_row.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
 class DeviceCSR:
-    """CSR adjacency on a torch device, as the SpMM kernel reads it."""
+    """CSR adjacency on a torch device, as the SpMM kernel reads it, with
+    its segment plan. ``from_csr`` builds the plan; a DeviceCSR made
+    without one is refused by the SpMM."""
 
     indptr: torch.Tensor     # (V+1,) int64
     indices: torch.Tensor    # (E,)   int32
     values: torch.Tensor     # (E,)   float32
     n_nodes: int
+    plan: Optional[SegmentPlan] = None
 
     @staticmethod
-    def from_csr(csr: CSRGraph, device=None) -> "DeviceCSR":
+    def from_csr(csr: CSRGraph, device=None,
+                 seg_len: int = SEG_LEN) -> "DeviceCSR":
         device = resolve_device(device)
         return DeviceCSR(
             indptr=torch.from_numpy(csr.indptr).to(device),
             indices=torch.from_numpy(csr.indices).to(device),
             values=torch.from_numpy(csr.values).to(device),
-            n_nodes=csr.n_nodes)
+            n_nodes=csr.n_nodes,
+            plan=SegmentPlan.build(csr, seg_len, device))
 
     @property
     def n_edges(self) -> int:

@@ -12,8 +12,14 @@ machine does not need.) Tolerances: K1 and K4 are bit-equal to their
 plain versions (same integer descent), and K4 expanded is bit-equal to
 K1's y; K3 is exact (it moves bits); K2 at float32 agrees at rtol=1e-5,
 atol=1e-5, since CUDA index_add_ sums in another order than the kernel's
-CSR order.
+CSR order. On the split-boundary graphs (a star row, rows of S-1, S, S+1
+and 2S+1 edges) K2 is held to that plus the two-order bound of each
+row's sum, 2 n_r 2**-24 sum_e |v_e x_e|, since the star row sums
+hundreds of terms. K2 is bit-for-bit deterministic: two calls give the
+same bits.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -26,7 +32,7 @@ from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
 from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
                                           cbsr_topk_plain, maxk_forward,
                                           maxk_forward_plain)
-from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
+from maxk_tpu_torch.ops.graph import SEG_LEN, CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
 
 pytestmark = pytest.mark.cuda
@@ -155,6 +161,82 @@ def test_k2_unaligned_x_uses_scalar_loads(cuda_device):
     x = base[1:].view(256, 64)         # 4-byte offset: no 16-byte loads
     torch.testing.assert_close(spmm_csr(g, x), spmm_csr_plain(g, x),
                                rtol=1e-5, atol=1e-5)
+
+
+def _split_graph(kind, seg_len, n=64, seed=0):
+    """'star': row 0 holds every edge (5 seg_len + 3 of them); 'boundary':
+    rows of seg_len - 1, seg_len, seg_len + 1 and 2 seg_len + 1 edges and
+    a few short rows. Both have zero-degree rows."""
+    rng = np.random.default_rng(seed)
+    if kind == "star":
+        src = np.zeros(5 * seg_len + 3, np.int64)
+    else:
+        lens = {1: seg_len - 1, 2: seg_len, 3: seg_len + 1,
+                5: 2 * seg_len + 1}
+        src = np.concatenate([np.full(m, r) for r, m in lens.items()]
+                             + [rng.integers(8, n // 2, 3 * n)])
+    dst = rng.integers(0, n, len(src)).astype(np.int32)
+    vals = rng.uniform(size=len(src)).astype(np.float32)
+    return CSRGraph.from_coo(src, dst, n, vals)
+
+
+def _assert_k2_close(g, x, out, ref):
+    g_abs = dataclasses.replace(g, values=g.values.abs())
+    n = torch.diff(g.indptr).double()[:, None]
+    bound = 2 * n * 2.0 ** -24 * spmm_csr_plain(g_abs, x.float().abs())
+    tol = 1e-5 + 1e-5 * ref.double().abs() + bound.double()
+    assert bool(((out.double() - ref.double()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 200, 256, 1100])
+@pytest.mark.parametrize("seg_len", [8, SEG_LEN])
+@pytest.mark.parametrize("kind", ["star", "boundary"])
+def test_k2_split_rows_match_plain(cuda_device, kind, seg_len, d, dtype):
+    csr = _split_graph(kind, seg_len)
+    g = DeviceCSR.from_csr(csr, cuda_device, seg_len=seg_len)
+    assert g.plan.n_partials > 0
+    x = _x("normal", csr.n_nodes, d, seed=d).to(cuda_device).to(dtype)
+    out = spmm_csr(g, x)
+    ref = spmm_csr_plain(g, x)
+    torch.cuda.synchronize()
+    _assert_k2_close(g, x, out, ref)
+    empty = torch.diff(g.indptr) == 0
+    assert bool(empty.any()) and torch.all(out[empty] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["star", "boundary"])
+def test_k2_split_rows_unaligned_x(cuda_device, kind, dtype):
+    csr = _split_graph(kind, 8)
+    g = DeviceCSR.from_csr(csr, cuda_device, seg_len=8)
+    base = _x("normal", csr.n_nodes * 256 + 1, 1, seed=4).to(cuda_device)
+    x = base.to(dtype).view(-1)[1:].view(csr.n_nodes, 256)
+    assert x.data_ptr() % 16 != 0
+    _assert_k2_close(g, x, spmm_csr(g, x), spmm_csr_plain(g, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_is_deterministic(cuda_device, dtype):
+    """Two calls give the same bits: each lane sums its columns in CSR
+    order, and each split row its partials in segment order."""
+    g = DeviceCSR.from_csr(_graph("power_law", 4096, seed=11).transpose(),
+                           cuda_device, seg_len=16)
+    assert g.plan.n_partials > 0
+    x = _x("normal", 4096, 256, seed=12).to(cuda_device).to(dtype)
+    first = spmm_csr(g, x)
+    second = spmm_csr(g, x)
+    torch.cuda.synchronize()
+    assert torch.equal(second.view(torch.int32), first.view(torch.int32))
+
+
+def test_k2_refuses_graph_without_plan(cuda_device):
+    g = DeviceCSR.from_csr(_graph("uniform", 64, seed=4), cuda_device)
+    x = _x("normal", 64, 32, seed=5).to(cuda_device)
+    before = spmm_csr.launches
+    with pytest.raises(ValueError, match="from_csr"):
+        spmm_csr(dataclasses.replace(g, plan=None), x)
+    assert spmm_csr.launches == before
 
 
 def test_launch_counters_count_kernel_launches(cuda_device):

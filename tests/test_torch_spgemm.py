@@ -9,6 +9,9 @@ JAX package's CBSR route returns a bfloat16 dx for a float32 x and the
 port a float32 one holding the same bf16-rounded values: the comparison
 is in float32.
 
+``test_maxk_spgemm_split_rows_f32_matches_jax`` runs the mask route at
+segment length 4, where K2 sums most rows from partials.
+
 MAXK_FUSED_MASK=0 selects the CBSR route in both packages. The JAX
 package reads it while tracing, so the ``cbsr_env`` fixture sets it
 before any JAX function is built and clears JAX's caches around the test.
@@ -23,7 +26,7 @@ import torch
 import maxk_tpu
 from maxk_tpu.ops import spgemm as jax_spgemm
 from maxk_tpu.ops.graph import build_tiled_graph
-from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
+from maxk_tpu_torch.ops.graph import SEG_LEN, CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import (maxk_spgemm, spgemm_forward_cbsr,
                                        sspmm_sampled)
 
@@ -45,15 +48,17 @@ def cbsr_env(monkeypatch):
     jax.clear_caches()
 
 
-def _port_graphs(graph):
+def _port_graphs(graph, seg_len=SEG_LEN):
     t = graph.transpose()
     return (DeviceCSR.from_csr(
-        CSRGraph(graph.indptr, graph.indices, graph.values), "cpu"),
-        DeviceCSR.from_csr(CSRGraph(t.indptr, t.indices, t.values), "cpu"))
+        CSRGraph(graph.indptr, graph.indices, graph.values), "cpu",
+        seg_len=seg_len),
+        DeviceCSR.from_csr(CSRGraph(t.indptr, t.indices, t.values), "cpu",
+                           seg_len=seg_len))
 
 
-def _run_port(graph, x, dy, k, compute_dtype):
-    dev, dev_t = _port_graphs(graph)
+def _run_port(graph, x, dy, k, compute_dtype, seg_len=SEG_LEN):
+    dev, dev_t = _port_graphs(graph, seg_len)
     xt = torch.from_numpy(x).requires_grad_(True)
     y = maxk_spgemm(dev, dev_t, xt, k, compute_dtype)
     y.backward(torch.from_numpy(dy))
@@ -61,7 +66,7 @@ def _run_port(graph, x, dy, k, compute_dtype):
     return y.detach().numpy(), xt.grad.numpy()
 
 
-def _run_both(graph, k, d, compute_dtype):
+def _run_both(graph, k, d, compute_dtype, seg_len=SEG_LEN):
     rng = np.random.default_rng(k * d)
     x = rng.normal(size=(graph.n_nodes, d)).astype(np.float32)
     dy = rng.normal(size=(graph.n_nodes, d)).astype(np.float32)
@@ -71,7 +76,7 @@ def _run_both(graph, k, d, compute_dtype):
         lambda a: maxk_tpu.maxk_spgemm(g, g_t, a, k, compute_dtype=cd),
         jnp.asarray(x))
     (dx_ref,) = vjp(jnp.asarray(dy))
-    y, dx = _run_port(graph, x, dy, k, compute_dtype)
+    y, dx = _run_port(graph, x, dy, k, compute_dtype, seg_len)
     return y, np.asarray(y_ref), dx, np.asarray(dx_ref, np.float32)
 
 
@@ -82,6 +87,14 @@ def test_maxk_spgemm_f32_matches_jax(graph, k, d):
     np.testing.assert_allclose(dx, dx_ref, rtol=1e-5, atol=1e-6)
     # dx is zero exactly off the top-k support.
     assert np.count_nonzero(dx, axis=1).max() <= k
+
+
+def test_maxk_spgemm_split_rows_f32_matches_jax(graph):
+    """seg_len 4: most rows of A and A^T are summed from partials."""
+    y, y_ref, dx, dx_ref = _run_both(graph, 8, 64, "float32", seg_len=4)
+    np.testing.assert_allclose(y, y_ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(dx, dx_ref, rtol=1e-5, atol=1e-6)
+    assert np.count_nonzero(dx, axis=1).max() <= 8
 
 
 def test_maxk_spgemm_default_bf16_matches_jax(graph):

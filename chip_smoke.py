@@ -6,7 +6,10 @@
 Phases, one JSON line each (any failure raises and exits non-zero):
   1 card         nvidia-smi name and power limit, torch's device name
   2 build        nvcc of every kernel (all at once), registers and spills
-  3 K1           MaxK kernel vs its plain version, bit-equal
+  3 K1           MaxK kernel vs its plain version, bit-equal, also on
+                 inputs that meet every exit of its descent (+-inf,
+                 denormals, mixed +-0.0, -NaN 0xFFFFFFFF; k = 1, 32, D;
+                 D = 256 and 200)
   4 K4           TopK->CBSR kernel vs its plain version, bit-equal; its
                  expansion vs K1's y, bit-equal
   5 K2           CSR SpMM kernel vs its plain version, on a small graph
@@ -27,11 +30,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  11 accuracy     the golden synthetic recipe's mean best_test over 16
                  init seeds vs 0.9847
  12 kernels      per kernel: launches in phase 9 (K1, K2) or 10 (K3,
-                 K4), max error, times, bound; K2 at bf16 and f32 x on
-                 the hub graph and on a graph of the same V and E without
-                 hubs, its sweep over segment length S, and the L2-to-SM
-                 rate its gathers imply; the share of each train step the
-                 kernels take
+                 K4), max error, times, bound; K1 on randn x, on phase
+                 3's integer ties and on the x each of the 4 hidden
+                 layers hands it in a train step, with its mean descent
+                 steps a row and its share of the byte bound (the last
+                 held bit-equal to the plain version); K2 at bf16 and
+                 f32 x on the hub graph and on a graph of the same V and
+                 E without hubs, its sweep over segment length S, and the
+                 L2-to-SM rate its gathers imply; the share of each train
+                 step the kernels take
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing any result.
 """
@@ -132,6 +139,97 @@ def gathered_sectors(selector, d: int, elem_bytes: int) -> int:
     return int(torch.unique_consecutive(sectors).numel())
 
 
+def k1_input(kind: str, v: int, d: int, gen) -> torch.Tensor:
+    """(v, d) float32 on gen's device that drives K1's descent to one of
+    its exits: 'inf' (+-inf, 10 % each), 'denormal' (random-sign
+    denormals), 'zeros' (mixed +-0.0, 30 % normals) or 'neg_nan' (30 %
+    -NaN 0xFFFFFFFF, whose key is 0 like an invalid slot's; every 7th
+    row all of it). torch.where moves the special values' bits as
+    they are."""
+    dev = gen.device
+    r = torch.rand(v, d, device=dev, generator=gen)
+    if kind == "denormal":
+        bits = torch.randint(0, 1 << 23, (v, d), device=dev, generator=gen,
+                             dtype=torch.int32)
+        return torch.where(r < 0.5, bits, bits | -2**31).view(torch.float32)
+    x = torch.randn(v, d, device=dev, generator=gen)
+    if kind == "inf":
+        x = torch.where(r < 0.1, math.inf, torch.where(r > 0.9, -math.inf, x))
+    elif kind == "zeros":
+        zeros = torch.where(r < 0.5, torch.zeros((), device=dev),
+                            torch.full((), -0.0, device=dev))
+        hot = torch.rand(v, d, device=dev, generator=gen) < 0.3
+        x = torch.where(hot, x, zeros)
+    elif kind == "neg_nan":
+        nan = torch.full((), -1, dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        rows = (torch.arange(v, device=dev) % 7 == 0)[:, None]
+        x = torch.where((r < 0.3) | rows, nan, x)
+    else:
+        raise ValueError(kind)
+    return x
+
+
+def descent_steps(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Steps each row of x runs in K1's descent, by the closed form
+    32 - floor(log2(key_k ^ key_k+1)) of its k-th and (k+1)-th largest
+    sortable keys (torch.topk): 32 when they are equal, 0 when k = D."""
+    from maxk_tpu_torch.ops.cuda_topk import sortable_key
+    if k == x.shape[1]:
+        return torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    top = torch.topk(sortable_key(x), k + 1, dim=1).values
+    xor = top[:, k - 1] ^ top[:, k]
+    bit_length = sum(((xor >> b) > 0).long() for b in range(32))
+    return torch.where(xor == 0, 32, 33 - bit_length)
+
+
+def bench_dataset(csr, v: int, d: int):
+    """The dataset of bench.py: features and split drawn after the
+    (unused) edge values from one seed-123 stream; unit edge values,
+    symmetric."""
+    from maxk_tpu_torch.data.datasets import Dataset
+    rng = np.random.default_rng(123)
+    rng.uniform(0, 1, csr.n_edges)
+    feats = rng.uniform(0, 1, (v, d)).astype(np.float32)
+    return Dataset(
+        name="bench", csr=csr.with_values(np.ones(csr.n_edges, np.float32)),
+        features=feats, labels=rng.integers(0, 41, size=v),
+        train_mask=rng.uniform(size=v) < 0.66,
+        val_mask=rng.uniform(size=v) < 0.1,
+        test_mask=rng.uniform(size=v) < 0.2,
+        num_classes=41, multilabel=False, metric="micro_f1", symmetric=True)
+
+
+def train_config(n_layers: int):
+    """Full-width SAGE n_layers x 256, MaxK k=32, bf16 compute, seed 97."""
+    return types.SimpleNamespace(
+        model="sage", hidden_dim=256, hidden_layers=n_layers, maxk=32,
+        dropout=0.5, norm=True, nonlinear="maxk", w_lr=0.01,
+        w_weight_decay=0.0, enable_lookahead=False, seed=97,
+        compute_dtype="bfloat16", device="cuda")
+
+
+def k1_train_inputs(cfg, ds, bundle) -> list:
+    """The x that K1 receives in each hidden layer during the first train
+    step of a fresh Trainer(cfg): the model's forward run layer by layer
+    as SAGE.forward does, with the trainer's dropout generator."""
+    from maxk_tpu_torch.models.models import dropout
+    from maxk_tpu_torch.train.loop import Trainer
+    trainer = Trainer(cfg, ds, graphs=bundle)
+    model, xs = trainer.model, []
+    with torch.no_grad():
+        x = model.lin_in(trainer.features)
+        for i in range(model.num_hid_layers):
+            xs.append(x.contiguous())
+            x, x_agg = model._aggregate(bundle, x)
+            x = (getattr(model, f"fc_self_{i}")(x)
+                 + getattr(model, f"fc_neigh_{i}")(x_agg))
+            x = dropout(x, model.feat_drop, True, trainer.generator)
+            if model.norm:
+                x = getattr(model, f"norm_{i}")(x)
+    return xs
+
+
 @contextlib.contextmanager
 def cbsr_env():
     """MAXK_FUSED_MASK=0 inside, the caller's setting restored after."""
@@ -174,7 +272,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from maxk_tpu_torch.data.loaders import synthetic_graph
-    from maxk_tpu_torch.data.datasets import Dataset, make_synthetic_dataset
+    from maxk_tpu_torch.data.datasets import make_synthetic_dataset
     from maxk_tpu_torch.models.models import GraphBundle
     from maxk_tpu_torch.native.build import build_all
     from maxk_tpu_torch.ops.cbsr import cbsr_expand
@@ -220,21 +318,29 @@ def main() -> int:
     v, d = 131072, 256
     x_full = torch.randn(v, d, device=dev, generator=gen)
     cases = [("normal", x_full, k) for k in (1, 8, 32, 64, 256)]
-    cases.append(("ties", torch.randint(-3, 4, (v, d), device=dev,
-                                        generator=gen).float(), 32))
+    x_ties = torch.randint(-3, 4, (v, d), device=dev, generator=gen).float()
+    cases.append(("ties", x_ties, 32))
     cases.append(("odd_d200", torch.randn(v, 200, device=dev,
                                           generator=gen), 32))
+    # Every exit of the early descent: none at k = D, late where the k-th
+    # and (k+1)-th keys tie, early elsewhere; invalid slots at D = 200.
+    for special in ("inf", "denormal", "zeros", "neg_nan"):
+        xk = k1_input(special, v, d, gen)
+        cases += [(special, xk, k) for k in (1, 32, d)]
+        cases.append((f"{special}_d200", k1_input(special, v, 200, gen), 32))
     k1_err = 0.0
     for name, x, k in cases:
         y, mask = maxk_forward(x, k)
         y_ref, m_ref = maxk_forward_plain(x, k)
-        check(torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
-              and torch.equal(mask, m_ref),
+        same = y.view(torch.int32) == y_ref.view(torch.int32)
+        check(bool(same.all()) and torch.equal(mask, m_ref),
               f"K1 differs from its plain version: {name} k={k}")
-        k1_err = max(k1_err, float((y - y_ref).abs().max()))
+        # Bit-equal, so only equal infs and NaNs differ as values.
+        k1_err = max(k1_err, float(torch.where(same, 0.0,
+                                               (y - y_ref).abs()).max()))
     emit("k1", cases=[f"{n}:k={k}:{tuple(x.shape)}" for n, x, k in cases],
          bit_equal=True, max_abs_err=k1_err)
-    del cases
+    del cases, xk
 
     # -- 4 K4 vs plain, and vs K1 ------------------------------------------
     ties = torch.randint(-3, 4, (v, d), device=dev, generator=gen).float()
@@ -426,24 +532,9 @@ def main() -> int:
     del y_ref, dx_ref, y_abs, dy_abs
 
     # -- 9 full-width training ---------------------------------------------
-    # The dataset of bench.py: features and split drawn after the (unused)
-    # edge values from one seed-123 stream; unit edge values, symmetric.
-    rng = np.random.default_rng(123)
-    rng.uniform(0, 1, csr.n_edges)
-    feats = rng.uniform(0, 1, (v, d)).astype(np.float32)
-    ds = Dataset(
-        name="bench", csr=csr.with_values(np.ones(csr.n_edges, np.float32)),
-        features=feats, labels=rng.integers(0, 41, size=v),
-        train_mask=rng.uniform(size=v) < 0.66,
-        val_mask=rng.uniform(size=v) < 0.1,
-        test_mask=rng.uniform(size=v) < 0.2,
-        num_classes=41, multilabel=False, metric="micro_f1", symmetric=True)
+    ds = bench_dataset(csr, v, d)
     n_layers = 4
-    cfg = types.SimpleNamespace(
-        model="sage", hidden_dim=256, hidden_layers=n_layers, maxk=32,
-        dropout=0.5, norm=True, nonlinear="maxk", w_lr=0.01,
-        w_weight_decay=0.0, enable_lookahead=False, seed=97,
-        compute_dtype="bfloat16", device="cuda")
+    cfg = train_config(n_layers)
 
     def train(per_step: dict):
         """5 steps and one eval of a fresh Trainer, every count set to 0
@@ -548,7 +639,34 @@ def main() -> int:
         return torch.zeros_like(x_full).scatter_(1, idx, vals)
 
     k1_lib = time_ms(topk_scatter)
-    k1_bound, k1_by = bound_ms(v * d * (4 + 4 + 1), 33 * v * d)
+    # A compare and an add per element and descent step, on this x's
+    # steps, and one more compare for the ties.
+    steps_a = float(descent_steps(x_full, k).double().mean())
+    k1_bound, k1_by = bound_ms(v * d * (4 + 4 + 1),
+                               (2 * steps_a + 1) * v * d)
+    # K1 on (a) randn x, (b) phase 3's integer ties, (c) what each hidden
+    # layer hands it in the first step of phase 9's training, the last
+    # held bit-equal to the plain version. All move the same bytes; they
+    # differ in their descent steps.
+    k1_inputs = [("a_randn", x_full), ("b_ties", x_ties)]
+    for i, xi in enumerate(k1_train_inputs(cfg, ds, bundle)):
+        y, mask = maxk_forward(xi, k)
+        y_ref, m_ref = maxk_forward_plain(xi, k)
+        check(torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
+              and torch.equal(mask, m_ref),
+              f"K1 differs from its plain version on layer {i}'s x")
+        k1_inputs.append((f"c_layer{i}", xi))
+    k1_bytes_ms = bound_ms(v * d * (4 + 4 + 1), 0)[0]
+    k1_by_input = []
+    for name, xi in k1_inputs:
+        row_steps = descent_steps(xi, k)
+        ms = k1_ms if xi is x_full else time_ms(lambda: maxk_forward(xi, k))
+        k1_by_input.append({
+            "input": name, "mean_steps": float(row_steps.double().mean()),
+            "rows_all_32_steps": float((row_steps == 32).double().mean()),
+            "ms": ms, "byte_bound_ms": k1_bytes_ms,
+            "share_of_byte_bound": k1_bytes_ms / ms})
+    del k1_inputs, xi, y, mask, y_ref, m_ref
 
     k4_ms = time_ms(lambda: cbsr_topk_forward(x_full, k))
     k4_plain = time_ms(lambda: cbsr_topk_plain(x_full, k), 1, 5)
@@ -649,6 +767,7 @@ def main() -> int:
                "the bf16-rounded x in f32 (K2), torch.gather with int64 "
                "indices (K3), torch.topk(sorted=False)+sort+gather (K4); "
                "launches: phase 9 (K1, K2), phase 10 (K3, K4)",
+         maxk_topk_by_input=k1_by_input,
          cbsr_gather_sectors=k3_sectors, cbsr_route_glue=glue,
          spmm_csr_uniform={"E": uni_csr.n_edges,
                            "max_degree": int(uni_csr.out_degrees.max()),
@@ -673,7 +792,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

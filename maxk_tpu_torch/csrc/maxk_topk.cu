@@ -5,10 +5,28 @@
 // exact k-th largest value and writes y = x * mask and a 0/1 uint8 mask;
 // ties at the threshold are kept first-column-first.
 //
-// What bounds it on the H100: bytes. Each element is read once (4 B) and
-// written twice (4 B of y, 1 B of mask); the 32-step threshold descent is
-// ~32 integer compares per element, well under the card's issue rate, so
-// the kernel sits on the 3.35 TB/s memory roof when it is right.
+// What bounds it on the H100: the integer pipe, on the threshold descent,
+// with the byte floor under it. Each element is read once (4 B) and
+// written twice (4 B of y, 1 B of mask): at (131072, 256) that is 302 MB,
+// 0.090 ms at 3.35 TB/s. A descent step at D = 256 (8 keys a lane) is 36
+// SASS instructions (cuobjdump, k1_ab.py): 3 a key (compare, add,
+// predicated move), the warp sum, the compare and select of t, the exit
+// test and the loop; about 22 of them on the integer ALU pipe, which
+// takes 2 clocks a warp instruction in each of an SM's 4 partitions. So
+// 32 steps for each of 131072 rows take ~0.18 ms on 132 SMs at ~1.98 GHz:
+// twice the byte floor, and about the 0.19 ms a full descent measured.
+//
+// So the descent stops early. Once cnt_t = count(key >= t) == k, the k
+// keys >= t are exactly the row's top k; every later step would only
+// lower t towards the least of them, which keeps the same set. The keep
+// set is {key >= t}, bit for bit the full descent's (`need` below is then
+// the number of ties, and all are kept). The exit comes at the highest bit
+// where the k-th and (k+1)-th largest keys differ:
+//   steps = 32 - floor(log2(key_k ^ key_k+1)),
+// 32 when they are equal, 0 when k = D. On the main path (k = 32, D =
+// 256) rows run 13-15 steps on average (PERF.md), which puts the
+// descent's ALU work under the byte floor; the two then overlap only in
+// part. Rows whose k-th and (k+1)-th keys tie still run 32 steps.
 //
 // Design: one warp per row, the row held in registers for the whole
 // search, so device memory is touched once per element.
@@ -17,9 +35,10 @@
 //   * Key: the order-preserving map of IEEE-754 float32 onto uint32
 //     (negative: ~bits, else bits | 0x80000000). -0.0 orders below +0.0,
 //     exactly as the TPU kernel's _sortable_key.
-//   * Descent: 32 MSB-first steps find the largest t with
-//     count(key >= t) >= k, i.e. the k-th largest key. Each step counts
-//     per lane and sums the warp with __reduce_add_sync.
+//   * Descent: MSB-first steps towards the largest t with
+//     count(key >= t) >= k, i.e. the k-th largest key, left at the first
+//     step whose count is exactly k. Each step counts per lane and sums
+//     the warp with __reduce_add_sync.
 //   * Ties: `need` = k - count(key > t) of the tied elements are kept, in
 //     column order. Column order across a warp is (j, lane), so an
 //     element's rank among ties is popc of the ballots of earlier j plus
@@ -61,26 +80,39 @@ maxk_topk_kernel(const float* __restrict__ x, float* __restrict__ y,
     key[j] = sortable_key(v[j]);
   }
 
-  // Largest t with count(key >= t) >= k. Invalid slots never count:
-  // every candidate has at least one bit set and their key is forced 0.
+  // MSB-first descent towards the largest t with count(key >= t) >= k,
+  // left as soon as cnt_t = count(key >= t) == k (see the header). cnt_t
+  // starts at the row's d valid columns, so k = d runs no step; after
+  // that it is the `cnt` of the last step that took its candidate, and
+  // only such a step can make it k: cnt == k implies the select took
+  // cand. So the exit is one compare and one branch after the select.
+  // (Nesting the test inside the taken branch made ptxas spill at
+  // VPL = 16.) `cnt` is the warp's sum, the same in every
+  // lane: the break is warp-uniform. Invalid slots never count: every
+  // candidate has at least one bit set and their key is forced 0.
 #pragma unroll
   for (int j = 0; j < VPL; ++j) key[j] = valid[j] ? key[j] : 0u;
   uint32_t t = 0;
+  if (k != d) {
 #pragma unroll 1
-  for (int bit = 31; bit >= 0; --bit) {
-    const uint32_t cand = t | (1u << bit);
-    unsigned cnt = 0;
+    for (int bit = 31; bit >= 0; --bit) {
+      const uint32_t cand = t | (1u << bit);
+      unsigned cnt = 0;
 #pragma unroll
-    for (int j = 0; j < VPL; ++j) cnt += key[j] >= cand;
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    if (cnt >= (unsigned)k) t = cand;
+      for (int j = 0; j < VPL; ++j) cnt += key[j] >= cand;
+      cnt = __reduce_add_sync(0xffffffffu, cnt);
+      t = cnt >= (unsigned)k ? cand : t;
+      if (cnt == (unsigned)k) break;
+    }
   }
 
   unsigned n_gt = 0;
 #pragma unroll
   for (int j = 0; j < VPL; ++j) n_gt += valid[j] && key[j] > t;
   n_gt = __reduce_add_sync(0xffffffffu, n_gt);
-  const int need = k - (int)n_gt;   // tied elements to keep, >= 1
+  // Tied elements to keep: >= 1 after a full descent; after an early
+  // exit all of them (possibly none: t may lie below every kept key).
+  const int need = k - (int)n_gt;
 
   const unsigned lt_mask = (1u << lane) - 1u;
   int before = 0;                    // ties in earlier j slots

@@ -12,10 +12,11 @@ shape (V, k), selectors ascending per row. It replaces
 ``pallas_topk.py::_cbsr_kernel`` and ``::_cbsr_half_kernel``.
 
 On a CUDA tensor each launches its kernel, ``csrc/maxk_topk.cu`` and
-``csrc/cbsr_topk.cu`` (one warp per row, 32-step threshold descent in
-registers; see the sources for the bound and design). On a CPU tensor
-each runs its plain version, the same descent in torch ops. There is no
-fallback between the two.
+``csrc/cbsr_topk.cu`` (one warp per row, MSB-first threshold descent in
+registers; see the sources for the bound and design). K1's descent stops
+at the first step whose count is exactly k; K4's runs all 32 steps. On a
+CPU tensor each runs its plain version, the same descent in torch ops.
+There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -42,23 +43,55 @@ def sortable_key(x: torch.Tensor) -> torch.Tensor:
     return signed.to(torch.int64) + (1 << 31)
 
 
-def _keep_plain(x: torch.Tensor, k: int) -> torch.Tensor:
-    """The kernels' bool keep-mask in torch ops: exactly k per row."""
-    key = sortable_key(x)
-    t = torch.zeros((x.shape[0], 1), dtype=torch.int64, device=x.device)
-    for bit in range(31, -1, -1):
-        cand = t | (1 << bit)
-        cnt = (key >= cand).sum(dim=1, keepdim=True)
-        t = torch.where(cnt >= k, cand, t)
+def _keep_at(key: torch.Tensor, t: torch.Tensor, k: int) -> torch.Tensor:
+    """The kernels' bool keep-mask at threshold t (V, 1): every key > t,
+    then the first k - count(key > t) keys equal to t in column order."""
     gt = key > t
     tie = key == t
     need = k - gt.sum(dim=1, keepdim=True)
     return gt | (tie & (torch.cumsum(tie, dim=1) <= need))
 
 
+def _threshold_full(key: torch.Tensor, k: int) -> torch.Tensor:
+    """K4's descent: 32 MSB-first steps to the largest t with
+    count(key >= t) >= k, the k-th largest key of each row."""
+    t = torch.zeros((key.shape[0], 1), dtype=torch.int64, device=key.device)
+    for bit in range(31, -1, -1):
+        cand = t | (1 << bit)
+        cnt = (key >= cand).sum(dim=1, keepdim=True)
+        t = torch.where(cnt >= k, cand, t)
+    return t
+
+
+def _threshold_early(key: torch.Tensor, k: int):
+    """K1's descent: (t (V, 1), steps (V,)). The same steps as
+    `_threshold_full`, but a row's t stops changing once
+    cnt_t = count(key >= t) is k (cnt_t starts at D). The k keys >= t are
+    then the row's top k, so `_keep_at` gives the full descent's mask.
+    `steps` counts the steps each row ran: 32 - floor(log2(key_k ^
+    key_k+1)) of its k-th and (k+1)-th largest keys, 32 if they are
+    equal, 0 if k = D."""
+    v, d = key.shape
+    t = torch.zeros((v, 1), dtype=torch.int64, device=key.device)
+    cnt_t = torch.full((v, 1), d, dtype=torch.int64, device=key.device)
+    steps = torch.zeros((v, 1), dtype=torch.int64, device=key.device)
+    for bit in range(31, -1, -1):
+        live = cnt_t != k
+        if not bool(live.any()):
+            break
+        cand = t | (1 << bit)
+        cnt = (key >= cand).sum(dim=1, keepdim=True)
+        take = live & (cnt >= k)
+        t = torch.where(take, cand, t)
+        cnt_t = torch.where(take, cnt, cnt_t)
+        steps += live
+    return t, steps[:, 0]
+
+
 def maxk_forward_plain(x: torch.Tensor, k: int):
     """K1's algorithm in torch ops: (y, uint8 mask)."""
-    keep = _keep_plain(x, k)
+    key = sortable_key(x)
+    keep = _keep_at(key, _threshold_early(key, k)[0], k)
     # +0.0 where dropped, as the TPU kernel's y (see maxk_topk.cu).
     return torch.where(keep, x, 0.0), keep.to(torch.uint8)
 
@@ -67,7 +100,8 @@ def cbsr_topk_plain(x: torch.Tensor, k: int):
     """K4's algorithm in torch ops: (values, int32 selector). Each row
     keeps exactly k columns, so the row-major order of the keep-mask's
     nonzeros gives each row's selectors ascending."""
-    keep = _keep_plain(x, k)
+    key = sortable_key(x)
+    keep = _keep_at(key, _threshold_full(key, k), k)
     v = x.shape[0]
     selector = keep.nonzero()[:, 1].to(torch.int32).view(v, k)
     return x[keep].view(v, k), selector

@@ -46,20 +46,44 @@ def cuda_device():
 
 
 def _x(kind, v, d, seed):
+    """float32 (v, d): 'normal' (every 5th row mixed +-0.0), 'ties'
+    (integers in [-3, 3]), and for K1's descent exits 'inf' (+-inf),
+    'denormal' (random-sign denormals), 'zeros' (mixed +-0.0, 30 %
+    normals) and 'neg_nan' (-NaN 0xFFFFFFFF, key 0; every 7th row all)."""
     rng = np.random.default_rng(seed)
     if kind == "ties":
         x = rng.integers(-3, 4, size=(v, d))
+    elif kind == "denormal":
+        bits = (rng.integers(0, 1 << 23, size=(v, d), dtype=np.uint32)
+                | rng.integers(0, 2, size=(v, d), dtype=np.uint32) << 31)
+        return torch.from_numpy(bits.view(np.float32))
+    elif kind == "zeros":
+        x = np.where(rng.uniform(size=(v, d)) < 0.5, 0.0, -0.0)
+        x = np.where(rng.uniform(size=(v, d)) < 0.3,
+                     rng.normal(size=(v, d)), x)
     else:
         x = rng.normal(size=(v, d))
-        x[::5] = np.where(rng.uniform(size=(len(x[::5]), d)) < 0.5, 0.0,
-                          -0.0)
-    return torch.from_numpy(x.astype(np.float32))
+        if kind == "normal":
+            x[::5] = np.where(rng.uniform(size=(len(x[::5]), d)) < 0.5,
+                              0.0, -0.0)
+        elif kind == "inf":
+            r = rng.uniform(size=(v, d))
+            x[r < 0.1], x[r > 0.9] = np.inf, -np.inf
+    x = x.astype(np.float32)
+    if kind == "neg_nan":
+        x[rng.uniform(size=(v, d)) < 0.3] = np.uint32(0xFFFFFFFF).view(
+            np.float32)
+        x[::7] = np.uint32(0xFFFFFFFF).view(np.float32)
+    return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("kind", ["normal", "ties"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "inf", "denormal",
+                                  "zeros", "neg_nan"])
 @pytest.mark.parametrize("k", [1, 8, 32, "D"])
-@pytest.mark.parametrize("d", [128, 200, 256, 1024])
+@pytest.mark.parametrize("d", [33, 128, 200, 256, 1024])
 def test_k1_bit_equal_to_plain(cuda_device, d, k, kind):
+    """Every exit of the descent (none at k = D, late on ties, early
+    elsewhere) meets invalid slots at D = 33 and 200."""
     k = d if k == "D" else k
     x = _x(kind, 512, d, seed=d + (0 if k == d else k)).to(cuda_device)
     y, mask = maxk_forward(x, k)

@@ -10,8 +10,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  inputs that meet every exit of its descent (+-inf,
                  denormals, mixed +-0.0, -NaN 0xFFFFFFFF; k = 1, 32, D;
                  D = 256 and 200)
-  4 K4           TopK->CBSR kernel vs its plain version, bit-equal; its
-                 expansion vs K1's y, bit-equal
+  4 K4           TopK->CBSR kernel vs its plain version, bit-equal, also
+                 on phase 3's inputs that meet every exit of its descent;
+                 its expansion vs K1's y, bit-equal. The wide kernel (D >
+                 1024, both entries, through the public ops) vs the plain
+                 versions at D = 1025, 2048, 4096 on the same kinds of
+                 input, bit-equal
   5 K2           CSR SpMM kernel vs its plain version, on a small graph
                  and on split-row boundary graphs (a star row; rows of
                  S-1, S, S+1, 2S+1 edges); two calls bit-identical on the
@@ -22,19 +26,23 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  composition
   8 spgemm_cbsr  maxk_spgemm on the CBSR route (MAXK_FUSED_MASK=0) vs
                  the plain composition, and vs the mask route: forward
-                 bit-equal, dx the mask route's rounded to bfloat16
+                 bit-equal, dx the mask route's rounded to bfloat16; then
+                 both routes at D = 1280 on phase 5's small graph, where
+                 the wide kernel runs, with its launches
   9 train        SAGE 4x256, k=32, bf16 compute, on the 131072-node
                  synthetic graph: 5 steps and one eval; launch counts
  10 train_cbsr   the same on the CBSR route: launch counts per step, the
                  first loss vs phase 9's
  11 accuracy     the golden synthetic recipe's mean best_test over 16
                  init seeds vs 0.9847
- 12 kernels      per kernel: launches in phase 9 (K1, K2) or 10 (K3,
-                 K4), max error, times, bound; K1 on randn x, on phase
-                 3's integer ties and on the x each of the 4 hidden
-                 layers hands it in a train step, with its mean descent
-                 steps a row and its share of the byte bound (the last
-                 held bit-equal to the plain version); K2 at bf16 and
+ 12 kernels      per kernel: launches in phase 9 (K1, K2), 10 (K3, K4)
+                 or 8 (the wide kernel's two entries), max error, times,
+                 bound; K1 and K4 each on randn x, on phase 3's integer
+                 ties and on the x each of the 4 hidden layers hands it
+                 in a train step (K4's on the CBSR route), with their mean
+                 descent steps a row and share of the byte bound (the
+                 last held bit-equal to the plain version); the wide
+                 kernel at (16384, 2048), k = 32; K2 at bf16 and
                  f32 x on the hub graph and on a graph of the same V and
                  E without hubs, its sweep over segment length S, and the
                  L2-to-SM rate its gathers imply; the share of each train
@@ -280,8 +288,10 @@ def main() -> int:
                                                 cbsr_gather_plain)
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
     from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
+                                              cbsr_topk_forward_wide,
                                               cbsr_topk_plain, maxk_forward,
-                                              maxk_forward_plain)
+                                              maxk_forward_plain,
+                                              maxk_forward_wide)
     from maxk_tpu_torch.ops.graph import (SEG_LEN, CSRGraph, DeviceCSR,
                                           SegmentPlan)
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm
@@ -291,7 +301,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     # Every kernel wrapper's launch count, by kernel id.
     counted = {"k1": maxk_forward, "k2": spmm_csr, "k3": cbsr_gather_forward,
-               "k4": cbsr_topk_forward}
+               "k4": cbsr_topk_forward, "k1_wide": maxk_forward_wide,
+               "k4_wide": cbsr_topk_forward_wide}
 
     def counts() -> dict:
         return {name: fn.launches for name, fn in counted.items()}
@@ -324,10 +335,13 @@ def main() -> int:
                                           generator=gen), 32))
     # Every exit of the early descent: none at k = D, late where the k-th
     # and (k+1)-th keys tie, early elsewhere; invalid slots at D = 200.
+    # Phase 4 holds K4 to the same inputs.
+    exits = []
     for special in ("inf", "denormal", "zeros", "neg_nan"):
         xk = k1_input(special, v, d, gen)
-        cases += [(special, xk, k) for k in (1, 32, d)]
-        cases.append((f"{special}_d200", k1_input(special, v, 200, gen), 32))
+        exits += [(special, xk, k) for k in (1, 32, d)]
+        exits.append((f"{special}_d200", k1_input(special, v, 200, gen), 32))
+    cases += exits
     k1_err = 0.0
     for name, x, k in cases:
         y, mask = maxk_forward(x, k)
@@ -340,7 +354,7 @@ def main() -> int:
                                                (y - y_ref).abs()).max()))
     emit("k1", cases=[f"{n}:k={k}:{tuple(x.shape)}" for n, x, k in cases],
          bit_equal=True, max_abs_err=k1_err)
-    del cases, xk
+    del cases
 
     # -- 4 K4 vs plain, and vs K1 ------------------------------------------
     ties = torch.randint(-3, 4, (v, d), device=dev, generator=gen).float()
@@ -348,6 +362,7 @@ def main() -> int:
     cases += [("ties", ties, k) for k in (1, 8, 32, 33, 64, 256)]
     cases += [(f"d{w}", torch.randn(v, w, device=dev, generator=gen), 32)
               for w in (200, 384)]
+    cases += exits
     k4_err = 0.0
     for name, x, k in cases:
         values, selector = cbsr_topk_forward(x, k)
@@ -362,7 +377,54 @@ def main() -> int:
         k4_err = max(k4_err, float((values - v_ref).abs().max()))
     emit("k4", cases=[f"{n}:k={k}:{tuple(x.shape)}" for n, x, k in cases],
          bit_equal=True, expand_bit_equal_to_k1=True, max_abs_err=k4_err)
-    del cases, ties
+    del cases, ties, exits, xk
+
+    # The wide kernel, through the public ops (D > 1024 goes to it), on
+    # every kind of input above; its launches are counted in phase 8.
+    v_w, wide_cases = 8192, []
+    for w in (1025, 2048, 4096):
+        for kind in ("normal", "ties", "inf", "denormal", "zeros",
+                     "neg_nan"):
+            if kind == "normal":
+                xw = torch.randn(v_w, w, device=dev, generator=gen)
+            elif kind == "ties":
+                xw = torch.randint(-3, 4, (v_w, w), device=dev,
+                                   generator=gen).float()
+            else:
+                xw = k1_input(kind, v_w, w, gen)
+            wide_cases += [(kind, xw, k) for k in (1, 32, w)]
+    wide_before = counts()
+    wide_err = {"maxk_wide": 0.0, "cbsr_topk_wide": 0.0}
+    for name, xw, k in wide_cases:
+        y, mask = maxk_forward(xw, k)
+        values, selector = cbsr_topk_forward(xw, k)
+        y_ref, m_ref = maxk_forward_plain(xw, k)
+        v_ref, s_ref = cbsr_topk_plain(xw, k)
+        same = y.view(torch.int32) == y_ref.view(torch.int32)
+        check(bool(same.all()) and torch.equal(mask, m_ref),
+              f"wide K1 differs from its plain version: {name} k={k} "
+              f"D={xw.shape[1]}")
+        check(torch.equal(values.view(torch.int32), v_ref.view(torch.int32))
+              and torch.equal(selector, s_ref),
+              f"wide K4 differs from its plain version: {name} k={k} "
+              f"D={xw.shape[1]}")
+        check(torch.equal(cbsr_expand(values, selector, xw.shape[1])
+                          .view(torch.int32), y.view(torch.int32)),
+              f"wide K4 expanded differs from wide K1's y: {name} k={k}")
+        wide_err["maxk_wide"] = max(wide_err["maxk_wide"], float(
+            torch.where(same, 0.0, (y - y_ref).abs()).max()))
+        same = values.view(torch.int32) == v_ref.view(torch.int32)
+        wide_err["cbsr_topk_wide"] = max(wide_err["cbsr_topk_wide"], float(
+            torch.where(same, 0.0, (values - v_ref).abs()).max()))
+    ran = {n: c - wide_before[n] for n, c in counts().items()}
+    check(ran["k1_wide"] == ran["k4_wide"] == len(wide_cases)
+          and ran["k1"] == ran["k4"] == 0,
+          f"D > 1024 did not run the wide kernel alone: {ran}")
+    emit("topk_wide", rows=v_w,
+         cases=[f"{n}:k={k}:D={x.shape[1]}" for n, x, k in wide_cases],
+         bit_equal=True, expand_bit_equal_to_wide_k1=True,
+         launches=ran, max_abs_err=wide_err)
+    del wide_cases, xw, y, mask, values, selector, y_ref, m_ref, v_ref, s_ref
 
     # -- 5 K2 vs plain, and vs torch.sparse --------------------------------
     rng = np.random.default_rng(1)
@@ -371,9 +433,10 @@ def main() -> int:
     src = src[src % 4 != 0]                               # zero-degree rows
     dst = np.minimum((n_small * rng.power(0.3, len(src))).astype(np.int64),
                      n_small - 1)
-    small = DeviceCSR.from_csr(CSRGraph.from_coo(
+    small_csr = CSRGraph.from_coo(
         src, dst.astype(np.int32), n_small,
-        rng.uniform(size=len(src)).astype(np.float32)), dev)
+        rng.uniform(size=len(src)).astype(np.float32))
+    small = DeviceCSR.from_csr(small_csr, dev)
     xs = torch.randn(n_small, d, device=dev, generator=gen)
     out32 = spmm_csr(small, xs)
     ref32 = spmm_csr_plain(small, xs)
@@ -531,6 +594,54 @@ def main() -> int:
     del xg, xc, dy, y_mask, dx_mask, y_cbsr, dx_cbsr, dx_mask16, y_s, mask
     del y_ref, dx_ref, y_abs, dy_abs
 
+    # Both routes at D > 1024 on the small graph: the wide kernel takes
+    # K1's and K4's place. The same checks as above, every count set to 0
+    # just before and read just after.
+    small_t = DeviceCSR.from_csr(small_csr.transpose(), dev)
+    d_wide = 1280
+    xw = torch.randn(n_small, d_wide, device=dev, generator=gen)
+    dyw = torch.randn(n_small, d_wide, device=dev, generator=gen)
+    for fn in counted.values():
+        fn.launches = 0
+    wide_routes = {}
+    for route in ("mask", "cbsr"):
+        xg = xw.clone().requires_grad_(True)
+        with cbsr_env() if route == "cbsr" else contextlib.nullcontext():
+            yw = maxk_spgemm(small, small_t, xg, 32)
+            yw.backward(dyw)
+        wide_routes[route] = (yw.detach(), xg.grad)
+    wide_launches = counts()
+    check(wide_launches["k1_wide"] == wide_launches["k4_wide"] == 1
+          and wide_launches["k1"] == wide_launches["k4"] == 0,
+          f"maxk_spgemm at D={d_wide} did not run the wide kernel: "
+          f"{wide_launches}")
+    y_s, mask = maxk_forward_plain(xw, 32)
+    y_ref = spmm_csr_plain(small, y_s.to(torch.bfloat16))
+    dx_ref = spmm_csr_plain(small_t, dyw.to(torch.bfloat16)) * mask
+    y_abs = y_s.to(torch.bfloat16).float().abs()
+    dy_abs = dyw.to(torch.bfloat16).float().abs()
+    ratios = {}
+    for route, (yw, dxw) in wide_routes.items():
+        ratios[route] = {
+            "y": sum_error_ratio(yw, y_ref, small, y_abs),
+            "dx": sum_error_ratio(dxw, dx_ref, small_t, dy_abs,
+                                  rel=2.0 ** -8 if route == "cbsr" else 0.0)}
+        check(max(ratios[route].values()) <= 1.0,
+              f"maxk_spgemm at D={d_wide} ({route}) off its plain "
+              f"composition: error/bound {ratios[route]}")
+    (y_m, dx_m), (y_c, dx_c) = wide_routes["mask"], wide_routes["cbsr"]
+    check(torch.equal(y_c.view(torch.int32), y_m.view(torch.int32)),
+          f"CBSR forward at D={d_wide} is not bit-equal to the mask route's")
+    dx_m16 = torch.where(mask.bool(), dx_m.to(torch.bfloat16).float(), 0.0)
+    check(torch.equal(dx_c.view(torch.int32), dx_m16.view(torch.int32)),
+          f"CBSR dx at D={d_wide} is not the mask route's rounded to bf16")
+    emit("spgemm_wide", shape=[n_small, d_wide], k=32,
+         compute_dtype="bfloat16", err_over_sum_bound=ratios,
+         cbsr_y_bit_equal_to_mask_route=True,
+         cbsr_dx_bit_equal_to_mask_route_bf16=True, launches=wide_launches)
+    del xw, dyw, wide_routes, xg, yw, y_s, mask, y_ref, dx_ref, y_abs, dy_abs
+    del y_m, dx_m, y_c, dx_c, dx_m16
+
     # -- 9 full-width training ---------------------------------------------
     ds = bench_dataset(csr, v, d)
     n_layers = 4
@@ -570,7 +681,8 @@ def main() -> int:
                 round(torch.cuda.max_memory_allocated() / 2**30, 3))
 
     steps, launches, peak = train(
-        {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0})
+        {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0, "k1_wide": 0,
+         "k4_wide": 0})
     median_step_ms = statistics.median(s["ms"] for s in steps)
     emit("train", config="sage 4x256 maxk k=32 norm dropout=0.5 bf16",
          V=v, E=csr.n_edges, steps=steps, median_step_ms=median_step_ms,
@@ -580,7 +692,7 @@ def main() -> int:
     with cbsr_env():
         steps_c, launches_c, peak_c = train(
             {"k1": n_layers, "k2": 2 * n_layers, "k3": n_layers,
-             "k4": n_layers})
+             "k4": n_layers, "k1_wide": 0, "k4_wide": 0})
     first, first_c = steps[0]["loss"], steps_c[0]["loss"]
     check(abs(first_c - first) <= 1e-6 * abs(first),
           f"CBSR first loss {first_c} != mask route's {first}")
@@ -671,13 +783,59 @@ def main() -> int:
     k4_ms = time_ms(lambda: cbsr_topk_forward(x_full, k))
     k4_plain = time_ms(lambda: cbsr_topk_plain(x_full, k), 1, 5)
 
-    def topk_sorted():
-        vals, idx = torch.topk(x_full, k, dim=1, sorted=False)
+    def topk_sorted(x):
+        vals, idx = torch.topk(x, k, dim=1, sorted=False)
         sel, order = idx.sort(dim=1)
         return vals.gather(1, order), sel
 
-    k4_lib = time_ms(topk_sorted)
-    k4_bound, k4_by = bound_ms(v * d * 4 + v * k * (4 + 4), 33 * v * d)
+    k4_lib = time_ms(lambda: topk_sorted(x_full))
+    # K1's descent, so K1's operations; K4 writes only the k kept.
+    k4_bound, k4_by = bound_ms(v * d * 4 + v * k * (4 + 4),
+                               (2 * steps_a + 1) * v * d)
+    # K4 on the same kinds of input as K1, (c) captured on the CBSR route.
+    with cbsr_env():
+        k4_layers = k1_train_inputs(cfg, ds, bundle)
+    k4_inputs = [("a_randn", x_full), ("b_ties", x_ties)]
+    for i, xi in enumerate(k4_layers):
+        values, selector = cbsr_topk_forward(xi, k)
+        v_ref, s_ref = cbsr_topk_plain(xi, k)
+        check(torch.equal(values.view(torch.int32), v_ref.view(torch.int32))
+              and torch.equal(selector, s_ref),
+              f"K4 differs from its plain version on layer {i}'s x "
+              f"(CBSR route)")
+        k4_inputs.append((f"c_layer{i}", xi))
+    k4_bytes_ms = bound_ms(v * d * 4 + v * k * (4 + 4), 0)[0]
+    k4_by_input = []
+    for name, xi in k4_inputs:
+        row_steps = descent_steps(xi, k)
+        ms = (k4_ms if xi is x_full
+              else time_ms(lambda: cbsr_topk_forward(xi, k)))
+        k4_by_input.append({
+            "input": name, "mean_steps": float(row_steps.double().mean()),
+            "rows_all_32_steps": float((row_steps == 32).double().mean()),
+            "ms": ms, "byte_bound_ms": k4_bytes_ms,
+            "share_of_byte_bound": k4_bytes_ms / ms})
+    del k4_layers, k4_inputs, xi, values, selector, v_ref, s_ref
+
+    # The wide kernel's two entries at (16384, 2048), k = 32.
+    v_w, d_w = 16384, 2048
+    xw = torch.randn(v_w, d_w, device=dev, generator=gen)
+    steps_w = float(descent_steps(xw, k).double().mean())
+    ops_w = (2 * steps_w + 1) * v_w * d_w
+
+    def topk_scatter_w():
+        vals, idx = torch.topk(xw, k, dim=1)
+        return torch.zeros_like(xw).scatter_(1, idx, vals)
+
+    k1w = {"ms": time_ms(lambda: maxk_forward(xw, k)),
+           "plain": time_ms(lambda: maxk_forward_plain(xw, k), 1, 5),
+           "lib": time_ms(topk_scatter_w),
+           "bound": bound_ms(v_w * d_w * (4 + 4 + 1), ops_w)}
+    k4w = {"ms": time_ms(lambda: cbsr_topk_forward(xw, k)),
+           "plain": time_ms(lambda: cbsr_topk_plain(xw, k), 1, 5),
+           "lib": time_ms(lambda: topk_sorted(xw)),
+           "bound": bound_ms(v_w * d_w * 4 + v_w * k * (4 + 4), ops_w)}
+    del xw
 
     e = g.n_edges
     k2_ms = time_ms(lambda: spmm_csr(g, x16))
@@ -756,18 +914,30 @@ def main() -> int:
         entry("cbsr_topk", "cbsr_topk.cu", "pallas_topk.py:102",
               launches_c["k4"], k4_err, k4_ms, k4_plain, k4_bound, k4_by,
               k4_lib),
+        entry("maxk_wide", "topk_wide.cu", "pallas_topk.py:95",
+              wide_launches["k1_wide"], wide_err["maxk_wide"], k1w["ms"],
+              k1w["plain"], *k1w["bound"], k1w["lib"]),
+        entry("cbsr_topk_wide", "topk_wide.cu", "pallas_topk.py:102",
+              wide_launches["k4_wide"], wide_err["cbsr_topk_wide"],
+              k4w["ms"], k4w["plain"], *k4w["bound"], k4w["lib"]),
     ]
     emit("kernels", shapes={"maxk_topk": f"x ({v}, {d}) f32, k={k}",
                             "spmm_csr": f"A {v}x{v} E={e} f32 values, "
                                         f"x ({v}, {d}) bf16",
                             "cbsr_gather": f"dense ({v}, {d}) bf16, "
                                            f"selector ({v}, {k}) int32",
-                            "cbsr_topk": f"x ({v}, {d}) f32, k={k}"},
-         notes="library: torch.topk+scatter_ (K1), torch.sparse.mm on "
-               "the bf16-rounded x in f32 (K2), torch.gather with int64 "
-               "indices (K3), torch.topk(sorted=False)+sort+gather (K4); "
-               "launches: phase 9 (K1, K2), phase 10 (K3, K4)",
-         maxk_topk_by_input=k1_by_input,
+                            "cbsr_topk": f"x ({v}, {d}) f32, k={k}",
+                            "maxk_wide": f"x ({v_w}, {d_w}) f32, k={k}",
+                            "cbsr_topk_wide": f"x ({v_w}, {d_w}) f32, "
+                                              f"k={k}"},
+         notes="library: torch.topk+scatter_ (K1, maxk_wide), "
+               "torch.sparse.mm on the bf16-rounded x in f32 (K2), "
+               "torch.gather with int64 indices (K3), "
+               "torch.topk(sorted=False)+sort+gather (K4, cbsr_topk_wide); "
+               "launches: phase 9 (K1, K2), phase 10 (K3, K4), phase 8's "
+               "maxk_spgemm at D=1280 (the wide kernel)",
+         topk_wide_mean_steps=steps_w,
+         maxk_topk_by_input=k1_by_input, cbsr_topk_by_input=k4_by_input,
          cbsr_gather_sectors=k3_sectors, cbsr_route_glue=glue,
          spmm_csr_uniform={"E": uni_csr.n_edges,
                            "max_degree": int(uni_csr.out_degrees.max()),

@@ -29,7 +29,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "maxk_tpu_torch"
-KERNELS = ("maxk_topk", "cbsr_topk", "spmm_csr", "cbsr_gather")
+KERNELS = ("maxk_topk", "cbsr_topk", "spmm_csr", "cbsr_gather",
+           "topk_wide")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

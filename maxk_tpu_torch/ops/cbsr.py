@@ -8,8 +8,9 @@ as in the JAX package (``maxk_tpu/ops/cbsr.py``): exact float32 values,
 no uint8 round trip, and int32 selectors, so no cap on D. The stored
 selectors stay int32; ``scatter_`` and ``gather`` get an int64 copy.
 
-- ``cbsr_topk``: each row's exact top-k as CBSR, first-column ties (K4,
-  ``ops/cuda_topk.py``).
+- ``cbsr_topk``: each row's exact top-k as CBSR, first-column ties, at
+  any D (``ops/cuda_topk.py``: on the card K4 up to 1024 columns, the
+  wide kernel ``csrc/topk_wide.cu`` above).
 - ``cbsr_expand``: CBSR back to a dense (V, dim) matrix.
 - ``cbsr_gather``: a dense (V, D) matrix sampled at the selectors (K3,
   ``ops/cuda_gather.py``), in the input's dtype.

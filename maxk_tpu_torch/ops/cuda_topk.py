@@ -11,11 +11,15 @@ them compacted as CBSR: ``(values, selector)``, float32 and int32 of
 shape (V, k), selectors ascending per row. It replaces
 ``pallas_topk.py::_cbsr_kernel`` and ``::_cbsr_half_kernel``.
 
-On a CUDA tensor each launches its kernel, ``csrc/maxk_topk.cu`` and
-``csrc/cbsr_topk.cu`` (one warp per row, MSB-first threshold descent in
-registers; see the sources for the bound and design). K1's descent stops
-at the first step whose count is exactly k; K4's runs all 32 steps. On a
-CPU tensor each runs its plain version, the same descent in torch ops.
+Both take any D. On a CUDA tensor each launches a hand-written kernel,
+chosen by D: up to ``MAX_D`` = 1024 columns the register kernel,
+``csrc/maxk_topk.cu`` or ``csrc/cbsr_topk.cu`` (one warp per row, the row
+in registers, 32 values a lane at most); above it ``csrc/topk_wide.cu``
+(``maxk_forward_wide``, ``cbsr_topk_forward_wide``: one warp per row,
+the row read again on each descent step), which computes the same bits.
+Every kernel stops its MSB-first threshold descent at the first step
+whose count is exactly k (see the sources for the bound and design). On a
+CPU tensor each op runs its plain version, the same descent in torch ops.
 There is no fallback between the two.
 """
 
@@ -26,7 +30,9 @@ import functools
 
 import torch
 
-MAX_D = 1024   # the kernels keep a row in registers: 32 values per lane
+# The widest row of the register kernels (32 values a lane); wider rows go
+# to the wide kernel.
+MAX_D = 1024
 
 
 def sortable_key(x: torch.Tensor) -> torch.Tensor:
@@ -53,8 +59,9 @@ def _keep_at(key: torch.Tensor, t: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _threshold_full(key: torch.Tensor, k: int) -> torch.Tensor:
-    """K4's descent: 32 MSB-first steps to the largest t with
-    count(key >= t) >= k, the k-th largest key of each row."""
+    """The full descent: 32 MSB-first steps to the largest t with
+    count(key >= t) >= k, the k-th largest key of each row. The kernels
+    stop earlier (`_threshold_early`) with the same keep set."""
     t = torch.zeros((key.shape[0], 1), dtype=torch.int64, device=key.device)
     for bit in range(31, -1, -1):
         cand = t | (1 << bit)
@@ -64,7 +71,7 @@ def _threshold_full(key: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _threshold_early(key: torch.Tensor, k: int):
-    """K1's descent: (t (V, 1), steps (V,)). The same steps as
+    """The kernels' descent: (t (V, 1), steps (V,)). The same steps as
     `_threshold_full`, but a row's t stops changing once
     cnt_t = count(key >= t) is k (cnt_t starts at D). The k keys >= t are
     then the row's top k, so `_keep_at` gives the full descent's mask.
@@ -101,17 +108,17 @@ def cbsr_topk_plain(x: torch.Tensor, k: int):
     keeps exactly k columns, so the row-major order of the keep-mask's
     nonzeros gives each row's selectors ascending."""
     key = sortable_key(x)
-    keep = _keep_at(key, _threshold_full(key, k), k)
+    keep = _keep_at(key, _threshold_early(key, k)[0], k)
     v = x.shape[0]
     selector = keep.nonzero()[:, 1].to(torch.int32).view(v, k)
     return x[keep].view(v, k), selector
 
 
 @functools.cache
-def _kernel(name: str):
-    """The C entry `name`_f32 of csrc/`name`.cu."""
+def _kernel(lib: str, entry: str):
+    """The C entry `entry` of csrc/`lib`.cu."""
     from maxk_tpu_torch.native.build import load
-    fn = getattr(load(name), f"{name}_f32")
+    fn = getattr(load(lib), entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
@@ -128,54 +135,91 @@ def _check(x: torch.Tensor, k: int) -> None:
                          f"D={x.shape[1]}")
 
 
-def _launch(name: str, x: torch.Tensor, k: int, out_a: torch.Tensor,
-            out_b: torch.Tensor) -> bool:
-    """Run kernel `name` (maxk_topk or cbsr_topk) on a CUDA x into out_a,
-    out_b; raises on what the kernels do not take. False if V = 0 left
-    nothing to launch."""
+def _launch(lib: str, entry: str, x: torch.Tensor, k: int,
+            out_a: torch.Tensor, out_b: torch.Tensor) -> bool:
+    """Run kernel `entry` of csrc/`lib`.cu on a CUDA x into out_a, out_b;
+    raises on what the kernels do not take. False if V = 0 left nothing
+    to launch."""
     if x.device.type != "cuda":
         raise ValueError(f"maxk: unsupported device {x.device}")
-    v, d = x.shape
-    if d > MAX_D:
-        raise ValueError(f"maxk kernel: D={d} > {MAX_D} is not supported "
-                         f"yet (ROADMAP: K1 for D > 1024)")
     if not x.is_contiguous():
         raise ValueError("maxk kernel: x must be contiguous")
+    v, d = x.shape
     if v == 0:
         return False
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(name)(x.data_ptr(), out_a.data_ptr(),
-                            out_b.data_ptr(), v, d, k, stream)
+        err = _kernel(lib, entry)(x.data_ptr(), out_a.data_ptr(),
+                                  out_b.data_ptr(), v, d, k, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     return True
 
 
+def _maxk_out(x: torch.Tensor):
+    return (torch.empty_like(x),
+            torch.empty(x.shape, dtype=torch.uint8, device=x.device))
+
+
+def _cbsr_out(x: torch.Tensor, k: int):
+    v = x.shape[0]
+    return (torch.empty((v, k), dtype=torch.float32, device=x.device),
+            torch.empty((v, k), dtype=torch.int32, device=x.device))
+
+
 def maxk_forward(x: torch.Tensor, k: int):
-    """(y, mask) for a (V, D) float32 x; K1 on CUDA tensors."""
+    """(y, mask) for a (V, D) float32 x; on CUDA tensors K1, or the wide
+    kernel for D > MAX_D."""
     _check(x, k)
     if x.device.type == "cpu":
         return maxk_forward_plain(x, k)
-    y = torch.empty_like(x)
-    mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-    if _launch("maxk_topk", x, k, y, mask):
+    if x.shape[1] > MAX_D:
+        return maxk_forward_wide(x, k)
+    y, mask = _maxk_out(x)
+    if _launch("maxk_topk", "maxk_topk_f32", x, k, y, mask):
         maxk_forward.launches += 1
     return y, mask
 
 
 def cbsr_topk_forward(x: torch.Tensor, k: int):
-    """(values, selector) for a (V, D) float32 x; K4 on CUDA tensors."""
+    """(values, selector) for a (V, D) float32 x; on CUDA tensors K4, or
+    the wide kernel for D > MAX_D."""
     _check(x, k)
     if x.device.type == "cpu":
         return cbsr_topk_plain(x, k)
-    v = x.shape[0]
-    values = torch.empty((v, k), dtype=torch.float32, device=x.device)
-    selector = torch.empty((v, k), dtype=torch.int32, device=x.device)
-    if _launch("cbsr_topk", x, k, values, selector):
+    if x.shape[1] > MAX_D:
+        return cbsr_topk_forward_wide(x, k)
+    values, selector = _cbsr_out(x, k)
+    if _launch("cbsr_topk", "cbsr_topk_f32", x, k, values, selector):
         cbsr_topk_forward.launches += 1
+    return values, selector
+
+
+def maxk_forward_wide(x: torch.Tensor, k: int):
+    """`maxk_forward` through csrc/topk_wide.cu at any D on CUDA tensors
+    (`maxk_forward` sends it rows wider than MAX_D)."""
+    _check(x, k)
+    if x.device.type == "cpu":
+        return maxk_forward_plain(x, k)
+    y, mask = _maxk_out(x)
+    if _launch("topk_wide", "maxk_wide_f32", x, k, y, mask):
+        maxk_forward_wide.launches += 1
+    return y, mask
+
+
+def cbsr_topk_forward_wide(x: torch.Tensor, k: int):
+    """`cbsr_topk_forward` through csrc/topk_wide.cu at any D on CUDA
+    tensors (`cbsr_topk_forward` sends it rows wider than MAX_D)."""
+    _check(x, k)
+    if x.device.type == "cpu":
+        return cbsr_topk_plain(x, k)
+    values, selector = _cbsr_out(x, k)
+    if _launch("topk_wide", "cbsr_topk_wide_f32", x, k, values, selector):
+        cbsr_topk_forward_wide.launches += 1
     return values, selector
 
 
 maxk_forward.launches = 0
 cbsr_topk_forward.launches = 0
+maxk_forward_wide.launches = 0
+cbsr_topk_forward_wide.launches = 0

@@ -1,4 +1,5 @@
-"""K1-K4 on the card against their plain PyTorch versions.
+"""K1-K4, and the wide top-k kernel for D > 1024, on the card against
+their plain PyTorch versions.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the ``cuda_device`` fixture, never at import). Run on a machine with an
@@ -8,9 +9,9 @@ H100 from the repo root:
       tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's
-machine does not need.) Tolerances: K1 and K4 are bit-equal to their
-plain versions (same integer descent), and K4 expanded is bit-equal to
-K1's y; K3 is exact (it moves bits); K2 at float32 agrees at rtol=1e-5,
+machine does not need.) Tolerances: K1, K4 and both entries of the wide
+kernel are bit-equal to their plain versions (same integer descent), and
+K4 expanded is bit-equal to K1's y; K3 is exact (it moves bits); K2 at float32 agrees at rtol=1e-5,
 atol=1e-5, since CUDA index_add_ sums in another order than the kernel's
 CSR order. On the split-boundary graphs (a star row, rows of S-1, S, S+1
 and 2S+1 edges) K2 is held to that plus the two-order bound of each
@@ -30,8 +31,10 @@ from maxk_tpu_torch.ops.cuda_gather import (cbsr_gather_forward,
                                             cbsr_gather_plain)
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
 from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
+                                          cbsr_topk_forward_wide,
                                           cbsr_topk_plain, maxk_forward,
-                                          maxk_forward_plain)
+                                          maxk_forward_plain,
+                                          maxk_forward_wide)
 from maxk_tpu_torch.ops.graph import SEG_LEN, CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
 
@@ -77,8 +80,10 @@ def _x(kind, v, d, seed):
     return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("kind", ["normal", "ties", "inf", "denormal",
-                                  "zeros", "neg_nan"])
+KINDS = ["normal", "ties", "inf", "denormal", "zeros", "neg_nan"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("k", [1, 8, 32, "D"])
 @pytest.mark.parametrize("d", [33, 128, 200, 256, 1024])
 def test_k1_bit_equal_to_plain(cuda_device, d, k, kind):
@@ -93,10 +98,12 @@ def test_k1_bit_equal_to_plain(cuda_device, d, k, kind):
     assert torch.equal(mask, m_ref)
 
 
-@pytest.mark.parametrize("kind", ["normal", "ties"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("k", [1, 8, 32, 33, "D"])
-@pytest.mark.parametrize("d", [128, 200, 256, 1024])
+@pytest.mark.parametrize("d", [33, 128, 200, 256, 1024])
 def test_k4_bit_equal_to_plain_and_to_k1(cuda_device, d, k, kind):
+    """K4's descent meets every exit as K1's does; at D = 33, k = 33 is
+    k = D."""
     k = d if k == "D" else k
     x = _x(kind, 512, d, seed=d + (0 if k == d else k)).to(cuda_device)
     values, selector = cbsr_topk_forward(x, k)
@@ -108,6 +115,29 @@ def test_k4_bit_equal_to_plain_and_to_k1(cuda_device, d, k, kind):
     assert torch.equal(selector, s_ref)
     assert torch.equal(cbsr_expand(values, selector, d).view(torch.int32),
                        y.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("k", [1, 32, "D"])
+@pytest.mark.parametrize("d", [1025, 1100, 2048, 4096])
+def test_wide_kernel_bit_equal_to_plain(cuda_device, d, k, kind):
+    """Both entries of csrc/topk_wide.cu, through the public ops (which
+    send D > 1024 to it) and called directly."""
+    k = d if k == "D" else k
+    x = _x(kind, 256, d, seed=d + (0 if k == d else k)).to(cuda_device)
+    before = (maxk_forward_wide.launches, cbsr_topk_forward_wide.launches)
+    y, mask = maxk_forward(x, k)
+    values, selector = cbsr_topk_forward(x, k)
+    assert (maxk_forward_wide.launches, cbsr_topk_forward_wide.launches) \
+        == (before[0] + 1, before[1] + 1)
+    y_ref, m_ref = maxk_forward_plain(x, k)
+    v_ref, s_ref = cbsr_topk_plain(x, k)
+    y_w, m_w = maxk_forward_wide(x, k)
+    torch.cuda.synchronize()
+    for a, b in ((y, y_ref), (y_w, y_ref), (values, v_ref)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(mask, m_ref) and torch.equal(m_w, m_ref)
+    assert torch.equal(selector, s_ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -266,33 +296,46 @@ def test_k2_refuses_graph_without_plan(cuda_device):
 def test_launch_counters_count_kernel_launches(cuda_device):
     g = DeviceCSR.from_csr(_graph("uniform", 64, seed=4), cuda_device)
     x = _x("normal", 64, 32, seed=5).to(cuda_device)
+    wide = _x("normal", 8, 1100, seed=5).to(cuda_device)
     kernels = (maxk_forward, spmm_csr, cbsr_gather_forward,
-               cbsr_topk_forward)
+               cbsr_topk_forward, maxk_forward_wide, cbsr_topk_forward_wide)
     before = [fn.launches for fn in kernels]
     maxk_forward(x, 4)
     spmm_csr(g, x)
     _, sel = cbsr_topk_forward(x, 4)
     cbsr_gather_forward(x, sel)
+    maxk_forward(wide, 4)
+    cbsr_topk_forward(wide, 4)
     maxk_forward_plain(x, 4)
     spmm_csr_plain(g, x)
     cbsr_topk_plain(x, 4)
     cbsr_gather_plain(x, sel)
+    maxk_forward_plain(wide, 4)
+    cbsr_topk_plain(wide, 4)
     assert [fn.launches for fn in kernels] == [n + 1 for n in before]
 
 
 def test_kernels_reject_what_they_cannot_take(cuda_device):
+    """Any D is taken: D = 1056 goes to the wide kernel."""
     x = _x("normal", 64, 32, seed=6).to(cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         maxk_forward(x.t(), 4)
-    with pytest.raises(ValueError, match="1024"):
-        maxk_forward(torch.zeros(4, 1056, device=cuda_device), 4)
+    x_wide = _x("normal", 4, 1056, seed=6).to(cuda_device)
+    y, mask = maxk_forward(x_wide, 4)
+    y_ref, m_ref = maxk_forward_plain(x_wide, 4)
+    assert torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
+    assert torch.equal(mask, m_ref)
     g = DeviceCSR.from_csr(_graph("uniform", 32, seed=7), cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         spmm_csr(g, x[:32, :].t().contiguous().t())
     with pytest.raises(ValueError, match="contiguous"):
         cbsr_topk_forward(x.t(), 4)
-    with pytest.raises(ValueError, match="1024"):
-        cbsr_topk_forward(torch.zeros(4, 1056, device=cuda_device), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        cbsr_topk_forward(x_wide.t(), 4)
+    values, selector = cbsr_topk_forward(x_wide, 4)
+    v_ref, s_ref = cbsr_topk_plain(x_wide, 4)
+    assert torch.equal(values.view(torch.int32), v_ref.view(torch.int32))
+    assert torch.equal(selector, s_ref)
     sel = torch.zeros(64, 4, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         cbsr_gather_forward(x.t().contiguous().t(), sel)

@@ -14,8 +14,20 @@ segment length 4, where K2 sums most rows from partials.
 
 MAXK_FUSED_MASK=0 selects the CBSR route in both packages. The JAX
 package reads it while tracing, so the ``cbsr_env`` fixture sets it
-before any JAX function is built and clears JAX's caches around the test.
+before any JAX function is built.
+
+Each JAX reference of ``maxk_spgemm`` runs as one jitted program (forward
+and vjp together), built once per (route, k, compute dtype) and cached at
+module scope; jit keys its compiled code on the graph's shapes and on D.
+Run eagerly, the reference went op by op and compiled its pieces anew in
+every test. The route is part of the key, read from the environment when
+the reference is called, and JAX's caches are cleared whenever it
+differs from the last reference's (and when the module ends), so no
+trace made on one route serves the other.
 """
+
+import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +55,10 @@ def graph(request):
 @pytest.fixture
 def cbsr_env(monkeypatch):
     monkeypatch.setenv("MAXK_FUSED_MASK", "0")
-    jax.clear_caches()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches_after_module():
     yield
     jax.clear_caches()
 
@@ -66,16 +81,39 @@ def _run_port(graph, x, dy, k, compute_dtype, seg_len=SEG_LEN):
     return y.detach().numpy(), xt.grad.numpy()
 
 
+@functools.cache
+def _jax_maxk_spgemm(route, k, compute_dtype):
+    """jit of (g, g_t, x, dy) -> (maxk_tpu.maxk_spgemm(g, g_t, x), dx) on
+    `route`, which must be the environment's when it is called."""
+    cd = None if compute_dtype is None else jnp.dtype(compute_dtype)
+
+    def fwd_vjp(g, g_t, x, dy):
+        y, vjp = jax.vjp(
+            lambda a: maxk_tpu.maxk_spgemm(g, g_t, a, k, compute_dtype=cd),
+            x)
+        return y, vjp(dy)[0]
+    return jax.jit(fwd_vjp)
+
+
+_LAST_ROUTE = [None]
+
+
+def _route():
+    """The environment's route; clears JAX's caches when it changed."""
+    route = "cbsr" if os.environ.get("MAXK_FUSED_MASK") == "0" else "mask"
+    if route != _LAST_ROUTE[0]:
+        jax.clear_caches()
+        _LAST_ROUTE[0] = route
+    return route
+
+
 def _run_both(graph, k, d, compute_dtype, seg_len=SEG_LEN):
     rng = np.random.default_rng(k * d)
     x = rng.normal(size=(graph.n_nodes, d)).astype(np.float32)
     dy = rng.normal(size=(graph.n_nodes, d)).astype(np.float32)
     g, g_t = build_tiled_graph(graph), build_tiled_graph(graph.transpose())
-    cd = None if compute_dtype is None else jnp.dtype(compute_dtype)
-    y_ref, vjp = jax.vjp(
-        lambda a: maxk_tpu.maxk_spgemm(g, g_t, a, k, compute_dtype=cd),
-        jnp.asarray(x))
-    (dx_ref,) = vjp(jnp.asarray(dy))
+    y_ref, dx_ref = _jax_maxk_spgemm(_route(), k, compute_dtype)(
+        g, g_t, jnp.asarray(x), jnp.asarray(dy))
     y, dx = _run_port(graph, x, dy, k, compute_dtype, seg_len)
     return y, np.asarray(y_ref), dx, np.asarray(dx_ref, np.float32)
 
@@ -133,6 +171,12 @@ def test_cbsr_and_mask_routes_agree(graph, compute_dtype, monkeypatch):
     np.testing.assert_array_equal(dx, np.asarray(dx_mask))
 
 
+_JIT_FORWARD_CBSR = jax.jit(jax_spgemm.spgemm_forward_cbsr,
+                            static_argnames=("dim", "compute_dtype"))
+_JIT_SSPMM_SAMPLED = jax.jit(jax_spgemm.sspmm_sampled,
+                             static_argnames=("compute_dtype",))
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", None])
 def test_spgemm_forward_cbsr_matches_jax(graph, compute_dtype):
     d, k = 96, 12
@@ -140,8 +184,8 @@ def test_spgemm_forward_cbsr_matches_jax(graph, compute_dtype):
         size=(graph.n_nodes, d)).astype(np.float32)
     v, s = maxk_tpu.cbsr_topk(jnp.asarray(x), k)
     cd = None if compute_dtype is None else jnp.dtype(compute_dtype)
-    ref = np.asarray(jax_spgemm.spgemm_forward_cbsr(
-        build_tiled_graph(graph), v, s, d, compute_dtype=cd))
+    ref = np.asarray(_JIT_FORWARD_CBSR(build_tiled_graph(graph), v, s, d,
+                                       compute_dtype=cd))
     out = spgemm_forward_cbsr(
         _port_graphs(graph)[0], torch.from_numpy(np.array(v)),
         torch.from_numpy(np.array(s)), d, compute_dtype).numpy()
@@ -159,8 +203,8 @@ def test_sspmm_sampled_matches_jax(graph, compute_dtype):
     _, s = maxk_tpu.cbsr_topk(jnp.asarray(
         rng.normal(size=(graph.n_nodes, d)).astype(np.float32)), k)
     cd = None if compute_dtype is None else jnp.dtype(compute_dtype)
-    ref = jax_spgemm.sspmm_sampled(build_tiled_graph(graph.transpose()),
-                                   jnp.asarray(dy), s, compute_dtype=cd)
+    ref = _JIT_SSPMM_SAMPLED(build_tiled_graph(graph.transpose()),
+                             jnp.asarray(dy), s, compute_dtype=cd)
     out = sspmm_sampled(_port_graphs(graph)[1], torch.from_numpy(dy),
                         torch.from_numpy(np.array(s)), compute_dtype)
     # Both hand the sampler bfloat16 under bfloat16 compute.

@@ -1,14 +1,17 @@
-"""K1's early-exit threshold descent against the full one and maxk_tpu.
+"""The kernels' early-exit threshold descent against the full one and
+maxk_tpu.
 
-K1 (``maxk_forward_plain`` on the CPU, ``csrc/maxk_topk.cu`` on the card)
-leaves its MSB-first descent at the first step where count(key >= t) is
-exactly k; K4's plain version still runs all 32 steps. Both must keep the
-same entries: bit-equal masks and y, here on inputs chosen to meet every
-exit (k-th equal to (k+1)-th, k = 1, k = D, +-inf, denormals, mixed
-+-0.0, and the -NaN 0xFFFFFFFF whose key is 0, like an invalid slot).
-The plain version is also bit-equal to the TPU kernel in interpret mode,
-and the number of steps each row runs is the closed form
-32 - floor(log2(key_k ^ key_k+1)).
+K1 and K4 (``maxk_forward_plain`` and ``cbsr_topk_plain`` on the CPU,
+``csrc/maxk_topk.cu``, ``csrc/cbsr_topk.cu`` and ``csrc/topk_wide.cu`` on
+the card) leave their MSB-first descent at the first step where
+count(key >= t) is exactly k. Each must keep what the full 32-step
+descent keeps: bit-equal masks and y for K1, bit-equal values and
+selectors for K4, here on inputs chosen to meet every exit (k-th equal to
+(k+1)-th, k = 1, k = D, +-inf, denormals, mixed +-0.0, and the -NaN
+0xFFFFFFFF whose key is 0, like an invalid slot). Each plain version is
+also bit-equal to its TPU kernel in interpret mode, and the number of
+steps each row runs is the closed form 32 - floor(log2(key_k ^ key_k+1)).
+Every case is run for both ops (the ``op`` parameter).
 """
 
 import jax.numpy as jnp
@@ -16,9 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from maxk_tpu.ops.pallas_topk import maxk_pallas
-from maxk_tpu_torch.ops.cuda_topk import (_keep_at, _threshold_early,
-                                          _threshold_full, maxk_forward_plain,
+from maxk_tpu.ops.pallas_topk import cbsr_topk_pallas, maxk_pallas
+from maxk_tpu_torch.ops import cuda_topk
+from maxk_tpu_torch.ops.cuda_topk import (_keep_at, _threshold_full,
+                                          cbsr_topk_plain, maxk_forward_plain,
                                           sortable_key)
 
 KINDS = ["normal", "ties", "inf", "denormal", "zeros", "neg_nan"]
@@ -51,11 +55,23 @@ def _bits(a) -> np.ndarray:
     return np.asarray(a, np.float32).view(np.uint32)
 
 
-def _full_descent(x: torch.Tensor, k: int):
-    """(y, mask) of the 32-step descent, K4's."""
+def _full_descent(op: str, x: torch.Tensor, k: int):
+    """`op`'s output from the 32-step descent: (y, mask) for K1 ('maxk'),
+    (values, selector) for K4 ('cbsr')."""
     key = sortable_key(x)
     keep = _keep_at(key, _threshold_full(key, k), k)
-    return torch.where(keep, x, 0.0), keep.to(torch.uint8)
+    if op == "maxk":
+        return torch.where(keep, x, 0.0), keep.to(torch.uint8)
+    return (x[keep].view(-1, k),
+            keep.nonzero()[:, 1].to(torch.int32).view(-1, k))
+
+
+PLAIN = {"maxk": maxk_forward_plain, "cbsr": cbsr_topk_plain}
+PALLAS = {"maxk": maxk_pallas, "cbsr": cbsr_topk_pallas}
+
+
+def _as_bits(a: torch.Tensor) -> torch.Tensor:
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
 
 
 def test_inputs_hold_what_they_are_named_for():
@@ -65,33 +81,50 @@ def test_inputs_hold_what_they_are_named_for():
     assert np.isinf(_inputs("inf", 8, 64, 0)).mean() > 0.1
 
 
+@pytest.mark.parametrize("op", ["maxk", "cbsr"])
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("k", [1, 8, 32, "D"])
 @pytest.mark.parametrize("d", [128, 200])
-def test_early_descent_keeps_what_the_full_descent_keeps(d, k, kind):
+def test_early_descent_keeps_what_the_full_descent_keeps(d, k, kind, op):
     k = d if k == "D" else k
     x = torch.from_numpy(_inputs(kind, 64, d, seed=d + k))
-    y, mask = maxk_forward_plain(x, k)
-    y_full, m_full = _full_descent(x, k)
-    assert torch.equal(mask, m_full)
-    assert torch.equal(y.view(torch.int32), y_full.view(torch.int32))
-    assert torch.all(mask.sum(dim=1) == k)
+    out = PLAIN[op](x, k)
+    full = _full_descent(op, x, k)
+    for a, b in zip(out, full):
+        assert a.dtype == b.dtype and torch.equal(_as_bits(a), _as_bits(b))
+    if op == "maxk":
+        assert torch.all(out[1].sum(dim=1) == k)
+    else:
+        assert torch.all(torch.diff(out[1], dim=1) > 0)
 
 
+@pytest.mark.parametrize("op", ["maxk", "cbsr"])
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("k", [1, 32, "D"])
-def test_early_descent_bit_equal_to_pallas_interpret(k, kind):
+def test_early_descent_bit_equal_to_pallas_interpret(k, kind, op):
     """On every kind, +-inf and NaN rows included: the reference's
     x * mask is folded into a select, so a dropped inf or NaN comes out
-    +0.0 there as in the port."""
+    +0.0 there as in the port. The TPU's K4 compacts each kept value by a
+    sum over its row, which on the CPU writes a kept -0.0 or denormal as
+    +0.0; the port writes the kept entries as they are, so there its
+    values are compared after that rounding, and its selectors as they
+    are."""
     d = 128
     k = d if k == "D" else k
+    if op == "cbsr" and k == d:
+        k = 64              # its k-loops unroll: keep the trace small
     x = _inputs(kind, 96, d, seed=3 * k)
-    y_ref, m_ref = maxk_pallas(jnp.asarray(x), k, interpret=True)
-    y, mask = maxk_forward_plain(torch.from_numpy(x), k)
-    np.testing.assert_array_equal(
-        mask.numpy(), np.asarray(m_ref, np.float32).astype(np.uint8))
-    np.testing.assert_array_equal(_bits(y.numpy()), _bits(y_ref))
+    ref = PALLAS[op](jnp.asarray(x), k, interpret=True)
+    out = PLAIN[op](torch.from_numpy(x), k)
+    values = out[0].numpy()
+    if op == "maxk":
+        np.testing.assert_array_equal(
+            out[1].numpy(), np.asarray(ref[1], np.float32).astype(np.uint8))
+    else:
+        np.testing.assert_array_equal(out[1].numpy(), np.asarray(ref[1]))
+        flushed = np.abs(values) < np.finfo(np.float32).tiny
+        values = np.where(flushed, np.float32(0.0), values)
+    np.testing.assert_array_equal(_bits(values), _bits(ref[0]))
 
 
 def _closed_form_steps(x: np.ndarray, k: int) -> np.ndarray:
@@ -106,13 +139,24 @@ def _closed_form_steps(x: np.ndarray, k: int) -> np.ndarray:
                      for e in xor])
 
 
+@pytest.mark.parametrize("op", ["maxk", "cbsr"])
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("k", [1, 8, 32, "D"])
 @pytest.mark.parametrize("d", [128, 200])
-def test_early_descent_steps_match_closed_form(d, k, kind):
+def test_early_descent_steps_match_closed_form(d, k, kind, op, monkeypatch):
+    """The steps of the descent each op's plain version runs."""
     k = d if k == "D" else k
     x = _inputs(kind, 64, d, seed=d * k)
-    _, steps = _threshold_early(sortable_key(torch.from_numpy(x)), k)
+    ran = []
+    early = cuda_topk._threshold_early
+
+    def recorded(key, kk):
+        ran.append(early(key, kk))
+        return ran[-1]
+    monkeypatch.setattr(cuda_topk, "_threshold_early", recorded)
+    PLAIN[op](torch.from_numpy(x), k)
+    assert len(ran) == 1
+    steps = ran[0][1]
     np.testing.assert_array_equal(steps.numpy(), _closed_form_steps(x, k))
     if kind == "normal" and k < d:
         assert steps.max() < 32          # every row leaves early

@@ -14,8 +14,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  on phase 3's inputs that meet every exit of its descent;
                  its expansion vs K1's y, bit-equal. The wide kernel (D >
                  1024, both entries, through the public ops) vs the plain
-                 versions at D = 1025, 2048, 4096 on the same kinds of
-                 input, bit-equal
+                 versions at D = 1025, 2048, 4096 (8192 rows), at its
+                 shared-memory cap 12288 and at 12289 (1024 rows), and at
+                 20000 (256 rows) on the same kinds of input, bit-equal,
+                 with the launches that streamed the row (D > 12288)
   5 K2           CSR SpMM kernel vs its plain version, on a small graph
                  and on split-row boundary graphs (a star row; rows of
                  S-1, S, S+1, 2S+1 edges); two calls bit-identical on the
@@ -42,7 +44,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  in a train step (K4's on the CBSR route), with their mean
                  descent steps a row and share of the byte bound (the
                  last held bit-equal to the plain version); the wide
-                 kernel at (16384, 2048), k = 32; K2 at bf16 and
+                 kernel's two entries at k = 32 on randn and integer ties
+                 at (16384, 2048) and randn at (16384, 8192), each with
+                 its mean descent steps, byte bound, share of it and
+                 library call; K2 at bf16 and
                  f32 x on the hub graph and on a graph of the same V and
                  E without hubs, its sweep over segment length S, and the
                  L2-to-SM rate its gathers imply; the share of each train
@@ -252,6 +257,14 @@ def cbsr_env():
             os.environ["MAXK_FUSED_MASK"] = prev
 
 
+def plan_fields(d: int) -> dict:
+    """The wide kernel's plan for rows of d columns, as JSON fields."""
+    from maxk_tpu_torch.ops.cuda_topk import wide_plan
+    plan = wide_plan(d)
+    return {**plan._asdict(), "in_smem": plan.in_smem,
+            "threads": plan.threads}
+
+
 def ptxas_summary(report: str) -> list:
     """[{kernel, registers, spill_stores, spill_loads}] from ptxas -v."""
     out, name = [], None
@@ -287,11 +300,12 @@ def main() -> int:
     from maxk_tpu_torch.ops.cuda_gather import (cbsr_gather_forward,
                                                 cbsr_gather_plain)
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
-    from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
+    from maxk_tpu_torch.ops.cuda_topk import (WIDE_SMEM_CAP,
+                                              cbsr_topk_forward,
                                               cbsr_topk_forward_wide,
                                               cbsr_topk_plain, maxk_forward,
                                               maxk_forward_plain,
-                                              maxk_forward_wide)
+                                              maxk_forward_wide, wide_plan)
     from maxk_tpu_torch.ops.graph import (SEG_LEN, CSRGraph, DeviceCSR,
                                           SegmentPlan)
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm
@@ -324,6 +338,11 @@ def main() -> int:
          kernels={name: {"build_seconds": round(b["seconds"], 3),
                          "ptxas": ptxas_summary(b["ptxas"])}
                   for name, b in built.items()})
+    wide_ptxas = ptxas_summary(built["topk_wide"]["ptxas"])
+    check(len(wide_ptxas) == 8 and all(
+        r.get("spill_stores", 1) == r.get("spill_loads", 1) == 0
+        for r in wide_ptxas),
+          f"topk_wide.cu: not 8 instantiations free of spills: {wide_ptxas}")
 
     # -- 3 K1 vs plain -----------------------------------------------------
     v, d = 131072, 256
@@ -380,9 +399,13 @@ def main() -> int:
     del cases, ties, exits, xk
 
     # The wide kernel, through the public ops (D > 1024 goes to it), on
-    # every kind of input above; its launches are counted in phase 8.
-    v_w, wide_cases = 8192, []
-    for w in (1025, 2048, 4096):
+    # every kind of input above; its launches are counted in phase 8. Its
+    # plan holds rows of up to 12288 columns in shared memory and streams
+    # wider ones: the cap and one column past it, and one D well past it.
+    wide_cases = []
+    cap_d = WIDE_SMEM_CAP // 4
+    for w, v_w in ((1025, 8192), (2048, 8192), (4096, 8192), (cap_d, 1024),
+                   (cap_d + 1, 1024), (20000, 256)):
         for kind in ("normal", "ties", "inf", "denormal", "zeros",
                      "neg_nan"):
             if kind == "normal":
@@ -394,6 +417,8 @@ def main() -> int:
                 xw = k1_input(kind, v_w, w, gen)
             wide_cases += [(kind, xw, k) for k in (1, 32, w)]
     wide_before = counts()
+    streamed_before = (maxk_forward_wide.streamed,
+                       cbsr_topk_forward_wide.streamed)
     wide_err = {"maxk_wide": 0.0, "cbsr_topk_wide": 0.0}
     for name, xw, k in wide_cases:
         y, mask = maxk_forward(xw, k)
@@ -417,11 +442,21 @@ def main() -> int:
         wide_err["cbsr_topk_wide"] = max(wide_err["cbsr_topk_wide"], float(
             torch.where(same, 0.0, (values - v_ref).abs()).max()))
     ran = {n: c - wide_before[n] for n, c in counts().items()}
+    ran["k1_wide_streamed"] = maxk_forward_wide.streamed - streamed_before[0]
+    ran["k4_wide_streamed"] = (cbsr_topk_forward_wide.streamed
+                               - streamed_before[1])
+    n_streamed = sum(not wide_plan(x.shape[1]).in_smem
+                     for _, x, _ in wide_cases)
     check(ran["k1_wide"] == ran["k4_wide"] == len(wide_cases)
-          and ran["k1"] == ran["k4"] == 0,
-          f"D > 1024 did not run the wide kernel alone: {ran}")
-    emit("topk_wide", rows=v_w,
-         cases=[f"{n}:k={k}:D={x.shape[1]}" for n, x, k in wide_cases],
+          and ran["k1"] == ran["k4"] == 0
+          and ran["k1_wide_streamed"] == ran["k4_wide_streamed"]
+          == n_streamed == 2 * 18,
+          f"D > 1024 did not run the wide kernel alone, or streamed "
+          f"other rows than D = 12289 and 20000: {ran}")
+    emit("topk_wide",
+         cases=[f"{n}:k={k}:{tuple(x.shape)}" for n, x, k in wide_cases],
+         plans={w: plan_fields(w)
+                for w in sorted({x.shape[1] for _, x, _ in wide_cases})},
          bit_equal=True, expand_bit_equal_to_wide_k1=True,
          launches=ran, max_abs_err=wide_err)
     del wide_cases, xw, y, mask, values, selector, y_ref, m_ref, v_ref, s_ref
@@ -746,11 +781,11 @@ def main() -> int:
     k1_ms = time_ms(lambda: maxk_forward(x_full, k))
     k1_plain = time_ms(lambda: maxk_forward_plain(x_full, k), 1, 5)
 
-    def topk_scatter():
-        vals, idx = torch.topk(x_full, k, dim=1)
-        return torch.zeros_like(x_full).scatter_(1, idx, vals)
+    def topk_scatter(x):
+        vals, idx = torch.topk(x, k, dim=1)
+        return torch.zeros_like(x).scatter_(1, idx, vals)
 
-    k1_lib = time_ms(topk_scatter)
+    k1_lib = time_ms(lambda: topk_scatter(x_full))
     # A compare and an add per element and descent step, on this x's
     # steps, and one more compare for the ties.
     steps_a = float(descent_steps(x_full, k).double().mean())
@@ -817,25 +852,49 @@ def main() -> int:
             "share_of_byte_bound": k4_bytes_ms / ms})
     del k4_layers, k4_inputs, xi, values, selector, v_ref, s_ref
 
-    # The wide kernel's two entries at (16384, 2048), k = 32.
-    v_w, d_w = 16384, 2048
-    xw = torch.randn(v_w, d_w, device=dev, generator=gen)
-    steps_w = float(descent_steps(xw, k).double().mean())
-    ops_w = (2 * steps_w + 1) * v_w * d_w
-
-    def topk_scatter_w():
-        vals, idx = torch.topk(xw, k, dim=1)
-        return torch.zeros_like(xw).scatter_(1, idx, vals)
-
-    k1w = {"ms": time_ms(lambda: maxk_forward(xw, k)),
-           "plain": time_ms(lambda: maxk_forward_plain(xw, k), 1, 5),
-           "lib": time_ms(topk_scatter_w),
-           "bound": bound_ms(v_w * d_w * (4 + 4 + 1), ops_w)}
-    k4w = {"ms": time_ms(lambda: cbsr_topk_forward(xw, k)),
-           "plain": time_ms(lambda: cbsr_topk_plain(xw, k), 1, 5),
-           "lib": time_ms(lambda: topk_sorted(xw)),
-           "bound": bound_ms(v_w * d_w * 4 + v_w * k * (4 + 4), ops_w)}
+    # The wide kernel's two entries, through the public ops, at k = 32 on
+    # (a) randn and (b) integer ties at (16384, 2048), and (a) at
+    # (16384, 8192). Bytes: x read once, and y and mask (K1's entry) or k
+    # values and selectors (K4's) written once; operations: a compare and
+    # an add per element and descent step on this x, and one compare.
+    wide_timing = []
+    for name, xw in (
+            ("a_randn", torch.randn(16384, 2048, device=dev, generator=gen)),
+            ("b_ties", torch.randint(-3, 4, (16384, 2048), device=dev,
+                                     generator=gen).float()),
+            ("a_randn", torch.randn(16384, 8192, device=dev,
+                                    generator=gen))):
+        v_w, d_w = xw.shape
+        steps_w = float(descent_steps(xw, k).double().mean())
+        row = {"input": name, "shape": [v_w, d_w], "k": k,
+               "mean_steps": steps_w, "plan": plan_fields(d_w)}
+        for entry, op, lib, n_bytes in (
+                ("maxk_wide", maxk_forward, topk_scatter,
+                 v_w * d_w * (4 + 4 + 1)),
+                ("cbsr_topk_wide", cbsr_topk_forward, topk_sorted,
+                 v_w * d_w * 4 + v_w * k * (4 + 4))):
+            # Each timed input is first held bit-equal to the plain version.
+            plain = (maxk_forward_plain if entry == "maxk_wide"
+                     else cbsr_topk_plain)
+            (out_a, out_b), (ref_a, ref_b) = op(xw, k), plain(xw, k)
+            check(torch.equal(out_a.view(torch.int32),
+                              ref_a.view(torch.int32))
+                  and torch.equal(out_b, ref_b),
+                  f"{entry} differs from its plain version on the timed "
+                  f"{name} {(v_w, d_w)}")
+            del out_a, out_b, ref_a, ref_b
+            ms = time_ms(lambda: op(xw, k))
+            bytes_ms = bound_ms(n_bytes, 0)[0]
+            row[entry] = {
+                "ms": ms, "library_ms": time_ms(lambda: lib(xw)),
+                "bound": bound_ms(n_bytes, (2 * steps_w + 1) * v_w * d_w),
+                "byte_bound_ms": bytes_ms,
+                "share_of_byte_bound": bytes_ms / ms}
+            if not wide_timing:   # the kernels line's shape
+                row[entry]["plain_ms"] = time_ms(lambda: plain(xw, k), 1, 5)
+        wide_timing.append(row)
     del xw
+    k1w, k4w = wide_timing[0]["maxk_wide"], wide_timing[0]["cbsr_topk_wide"]
 
     e = g.n_edges
     k2_ms = time_ms(lambda: spmm_csr(g, x16))
@@ -916,10 +975,10 @@ def main() -> int:
               k4_lib),
         entry("maxk_wide", "topk_wide.cu", "pallas_topk.py:95",
               wide_launches["k1_wide"], wide_err["maxk_wide"], k1w["ms"],
-              k1w["plain"], *k1w["bound"], k1w["lib"]),
+              k1w["plain_ms"], *k1w["bound"], k1w["library_ms"]),
         entry("cbsr_topk_wide", "topk_wide.cu", "pallas_topk.py:102",
               wide_launches["k4_wide"], wide_err["cbsr_topk_wide"],
-              k4w["ms"], k4w["plain"], *k4w["bound"], k4w["lib"]),
+              k4w["ms"], k4w["plain_ms"], *k4w["bound"], k4w["library_ms"]),
     ]
     emit("kernels", shapes={"maxk_topk": f"x ({v}, {d}) f32, k={k}",
                             "spmm_csr": f"A {v}x{v} E={e} f32 values, "
@@ -927,8 +986,8 @@ def main() -> int:
                             "cbsr_gather": f"dense ({v}, {d}) bf16, "
                                            f"selector ({v}, {k}) int32",
                             "cbsr_topk": f"x ({v}, {d}) f32, k={k}",
-                            "maxk_wide": f"x ({v_w}, {d_w}) f32, k={k}",
-                            "cbsr_topk_wide": f"x ({v_w}, {d_w}) f32, "
+                            "maxk_wide": f"x (16384, 2048) f32, k={k}",
+                            "cbsr_topk_wide": "x (16384, 2048) f32, "
                                               f"k={k}"},
          notes="library: torch.topk+scatter_ (K1, maxk_wide), "
                "torch.sparse.mm on the bf16-rounded x in f32 (K2), "
@@ -936,7 +995,7 @@ def main() -> int:
                "torch.topk(sorted=False)+sort+gather (K4, cbsr_topk_wide); "
                "launches: phase 9 (K1, K2), phase 10 (K3, K4), phase 8's "
                "maxk_spgemm at D=1280 (the wide kernel)",
-         topk_wide_mean_steps=steps_w,
+         topk_wide_by_input=wide_timing,
          maxk_topk_by_input=k1_by_input, cbsr_topk_by_input=k4_by_input,
          cbsr_gather_sectors=k3_sectors, cbsr_route_glue=glue,
          spmm_csr_uniform={"E": uni_csr.n_edges,

@@ -15,8 +15,10 @@ Both take any D. On a CUDA tensor each launches a hand-written kernel,
 chosen by D: up to ``MAX_D`` = 1024 columns the register kernel,
 ``csrc/maxk_topk.cu`` or ``csrc/cbsr_topk.cu`` (one warp per row, the row
 in registers, 32 values a lane at most); above it ``csrc/topk_wide.cu``
-(``maxk_forward_wide``, ``cbsr_topk_forward_wide``: one warp per row,
-the row read again on each descent step), which computes the same bits.
+(``maxk_forward_wide``, ``cbsr_topk_forward_wide``: one block per row,
+the row's keys in shared memory up to ``WIDE_SMEM_CAP``, streamed from
+device memory above it, as ``wide_plan`` says), which computes the same
+bits.
 Every kernel stops its MSB-first threshold descent at the first step
 whose count is exactly k (see the sources for the bound and design). On a
 CPU tensor each op runs its plain version, the same descent in torch ops.
@@ -27,12 +29,44 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 # The widest row of the register kernels (32 values a lane); wider rows go
 # to the wide kernel.
 MAX_D = 1024
+# The wide kernel's block, the kThreads that csrc/topk_wide.cu is built
+# with (reported by wide_plan, not passed), and the most bytes of a row's
+# uint32 keys it holds in shared memory: 48 KB, D <= 12288 (the source's
+# kSmemCap, above which its entries refuse the plan).
+WIDE_THREADS = 128
+WIDE_SMEM_CAP = 48 * 1024
+
+
+class WidePlan(NamedTuple):
+    """How csrc/topk_wide.cu takes rows of D columns, one a block:
+    `smem_bytes` of dynamic shared memory for the row's keys, zero-padded
+    to whole 16-byte quads, or 0 when the keys are read from device memory
+    at every pass; `aligned` when D % 4 == 0, so that the rows of x and
+    the outputs start on 16-byte boundaries wherever their bases do, and
+    the wrapper asks for 16-byte loads and stores if the bases are."""
+    smem_bytes: int
+    aligned: bool
+
+    @property
+    def in_smem(self) -> bool:
+        return self.smem_bytes != 0
+
+    @property
+    def threads(self) -> int:
+        return WIDE_THREADS
+
+
+def wide_plan(d: int) -> WidePlan:
+    """The wide kernel's plan for rows of d columns."""
+    return WidePlan(smem_bytes=16 * -(-d // 4) if 4 * d <= WIDE_SMEM_CAP
+                    else 0, aligned=d % 4 == 0)
 
 
 def sortable_key(x: torch.Tensor) -> torch.Tensor:
@@ -115,13 +149,14 @@ def cbsr_topk_plain(x: torch.Tensor, k: int):
 
 
 @functools.cache
-def _kernel(lib: str, entry: str):
-    """The C entry `entry` of csrc/`lib`.cu."""
+def _kernel(lib: str, entry: str, n_plan: int):
+    """The C entry `entry` of csrc/`lib`.cu, which takes n_plan ints of a
+    plan before the stream."""
     from maxk_tpu_torch.native.build import load
     fn = getattr(load(lib), entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   *[ctypes.c_int] * n_plan, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -136,10 +171,11 @@ def _check(x: torch.Tensor, k: int) -> None:
 
 
 def _launch(lib: str, entry: str, x: torch.Tensor, k: int,
-            out_a: torch.Tensor, out_b: torch.Tensor) -> bool:
-    """Run kernel `entry` of csrc/`lib`.cu on a CUDA x into out_a, out_b;
-    raises on what the kernels do not take. False if V = 0 left nothing
-    to launch."""
+            out_a: torch.Tensor, out_b: torch.Tensor, *plan: int) -> bool:
+    """Run kernel `entry` of csrc/`lib`.cu on a CUDA x into out_a, out_b,
+    with the ints of `plan` where the entry takes them; raises on what
+    the kernels do not take and on a refused launch. False if V = 0 left
+    nothing to launch."""
     if x.device.type != "cuda":
         raise ValueError(f"maxk: unsupported device {x.device}")
     if not x.is_contiguous():
@@ -149,8 +185,9 @@ def _launch(lib: str, entry: str, x: torch.Tensor, k: int,
         return False
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(lib, entry)(x.data_ptr(), out_a.data_ptr(),
-                                  out_b.data_ptr(), v, d, k, stream)
+        err = _kernel(lib, entry, len(plan))(
+            x.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), v, d, k,
+            *plan, stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     return True
@@ -195,6 +232,20 @@ def cbsr_topk_forward(x: torch.Tensor, k: int):
     return values, selector
 
 
+def _launch_wide(op, entry: str, x: torch.Tensor, k: int,
+                 out_a: torch.Tensor, out_b: torch.Tensor) -> None:
+    """Launch `entry` of csrc/topk_wide.cu on wide_plan(D), counted on op:
+    `launches`, and `streamed` for those that read the row from device
+    memory at every pass."""
+    plan = wide_plan(x.shape[1])
+    vec = plan.aligned and all(t.data_ptr() % 16 == 0
+                               for t in (x, out_a, out_b))
+    if _launch("topk_wide", entry, x, k, out_a, out_b, int(vec),
+               plan.smem_bytes):
+        op.launches += 1
+        op.streamed += not plan.in_smem
+
+
 def maxk_forward_wide(x: torch.Tensor, k: int):
     """`maxk_forward` through csrc/topk_wide.cu at any D on CUDA tensors
     (`maxk_forward` sends it rows wider than MAX_D)."""
@@ -202,8 +253,7 @@ def maxk_forward_wide(x: torch.Tensor, k: int):
     if x.device.type == "cpu":
         return maxk_forward_plain(x, k)
     y, mask = _maxk_out(x)
-    if _launch("topk_wide", "maxk_wide_f32", x, k, y, mask):
-        maxk_forward_wide.launches += 1
+    _launch_wide(maxk_forward_wide, "maxk_wide_f32", x, k, y, mask)
     return y, mask
 
 
@@ -214,8 +264,8 @@ def cbsr_topk_forward_wide(x: torch.Tensor, k: int):
     if x.device.type == "cpu":
         return cbsr_topk_plain(x, k)
     values, selector = _cbsr_out(x, k)
-    if _launch("topk_wide", "cbsr_topk_wide_f32", x, k, values, selector):
-        cbsr_topk_forward_wide.launches += 1
+    _launch_wide(cbsr_topk_forward_wide, "cbsr_topk_wide_f32", x, k, values,
+                 selector)
     return values, selector
 
 
@@ -223,3 +273,5 @@ maxk_forward.launches = 0
 cbsr_topk_forward.launches = 0
 maxk_forward_wide.launches = 0
 cbsr_topk_forward_wide.launches = 0
+maxk_forward_wide.streamed = 0
+cbsr_topk_forward_wide.streamed = 0

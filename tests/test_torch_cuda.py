@@ -30,11 +30,11 @@ from maxk_tpu_torch.ops.cbsr import cbsr_expand
 from maxk_tpu_torch.ops.cuda_gather import (cbsr_gather_forward,
                                             cbsr_gather_plain)
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
-from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
+from maxk_tpu_torch.ops.cuda_topk import (WIDE_SMEM_CAP, cbsr_topk_forward,
                                           cbsr_topk_forward_wide,
                                           cbsr_topk_plain, maxk_forward,
                                           maxk_forward_plain,
-                                          maxk_forward_wide)
+                                          maxk_forward_wide, wide_plan)
 from maxk_tpu_torch.ops.graph import SEG_LEN, CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
 
@@ -81,6 +81,8 @@ def _x(kind, v, d, seed):
 
 
 KINDS = ["normal", "ties", "inf", "denormal", "zeros", "neg_nan"]
+# The widest row the wide kernel holds in shared memory (4-byte keys).
+WIDE_CAP_D = WIDE_SMEM_CAP // 4
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -119,17 +121,24 @@ def test_k4_bit_equal_to_plain_and_to_k1(cuda_device, d, k, kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("k", [1, 32, "D"])
-@pytest.mark.parametrize("d", [1025, 1100, 2048, 4096])
+@pytest.mark.parametrize("d", [1025, 1100, 2048, 4096, WIDE_CAP_D,
+                               WIDE_CAP_D + 1, 20000])
 def test_wide_kernel_bit_equal_to_plain(cuda_device, d, k, kind):
     """Both entries of csrc/topk_wide.cu, through the public ops (which
-    send D > 1024 to it) and called directly."""
+    send D > 1024 to it) and called directly; the row in shared memory up
+    to the plan's cap, streamed past it (a few rows)."""
     k = d if k == "D" else k
-    x = _x(kind, 256, d, seed=d + (0 if k == d else k)).to(cuda_device)
-    before = (maxk_forward_wide.launches, cbsr_topk_forward_wide.launches)
+    in_smem = wide_plan(d).in_smem
+    x = _x(kind, 256 if in_smem else 32, d,
+           seed=d + (0 if k == d else k)).to(cuda_device)
+    before = (maxk_forward_wide.launches, cbsr_topk_forward_wide.launches,
+              maxk_forward_wide.streamed, cbsr_topk_forward_wide.streamed)
     y, mask = maxk_forward(x, k)
     values, selector = cbsr_topk_forward(x, k)
-    assert (maxk_forward_wide.launches, cbsr_topk_forward_wide.launches) \
-        == (before[0] + 1, before[1] + 1)
+    assert (maxk_forward_wide.launches, cbsr_topk_forward_wide.launches,
+            maxk_forward_wide.streamed, cbsr_topk_forward_wide.streamed) \
+        == (before[0] + 1, before[1] + 1, before[2] + (not in_smem),
+            before[3] + (not in_smem))
     y_ref, m_ref = maxk_forward_plain(x, k)
     v_ref, s_ref = cbsr_topk_plain(x, k)
     y_w, m_w = maxk_forward_wide(x, k)

@@ -1,15 +1,28 @@
-"""GNN models on the port's ops: SAGE and SAGEFused.
+"""GNN models on the port's ops: SAGE, SAGEFused, GCN, GIN and GNNRes.
 
 Same semantics as the JAX package's flax models, written as
-``nn.Module``s: lin_in -> per layer [MaxK (or ReLU) -> mean-neighbour
-aggregation; h = fc_self(x) + fc_neigh(x_agg); dropout; LayerNorm?] ->
-lin_out. Parameter names match the flax ones (``lin_in``,
-``fc_self_{i}``, ``fc_neigh_{i}``, ``norm_{i}``, ``lin_out``) so weights
-carry across (``models/convert.py``). flax's defaults are set
-explicitly: LayerNorm eps 1e-6, xavier-uniform weights and zero biases.
+``nn.Module``s:
+
+- SAGE: lin_in -> per layer [MaxK (or ReLU) -> mean-neighbour
+  aggregation; h = fc_self(x) + fc_neigh(x_agg); dropout; LayerNorm?]
+  -> lin_out. SAGEFused feeds fc_self the pre-MaxK x.
+- GCN: relu(lin_in) -> per layer [lin_i -> MaxK/ReLU -> dropout ->
+  sym-normalised aggregation + gconv_bias_i -> LayerNorm?] -> lin_out.
+- GIN: GCN's shell with (1 + gin_eps_i) x + sum-aggregation.
+- GNNRes: relu(lin_in) -> per layer [x_res = res_i(x); sym aggregation
+  + gconv_bias_i -> BatchNorm? -> lin1_i -> ReLU -> dropout -> lin2_i ->
+  MaxK/ReLU; x = relu(x_res + x) -> dropout] -> lin_out.
+
+Parameter names match the flax ones (``lin_in``, ``fc_self_{i}``,
+``fc_neigh_{i}``, ``lin_{i}``, ``gconv_bias_{i}``, ``gin_eps_{i}``,
+``res_{i}``, ``lin1_{i}``, ``lin2_{i}``, ``norm_{i}``, ``lin_out``), and
+GNNRes's BatchNorm keeps flax's ``batch_stats`` as running buffers, so
+weights carry across (``models/convert.py``). flax's defaults are set
+explicitly: LayerNorm eps 1e-6, BatchNorm momentum 0.99 and eps 1e-5,
+xavier-uniform weights and zero biases. MaxK runs on K1 and every
+aggregation on K2 (``ops/maxk.py``, ``ops/spmm.py``).
 
 Graphs are call-time arguments (a ``GraphBundle``), never parameters.
-GCN, GIN and GNN_res are not ported yet (ROADMAP slice 2).
 """
 
 from __future__ import annotations
@@ -105,7 +118,75 @@ def dropout(x: torch.Tensor, p: float, training: bool,
                                                         device=x.device))
 
 
-class SAGE(nn.Module):
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm`` over the node axis, with flax's statistics.
+
+    Training normalises with the batch's biased statistics, the variance
+    as flax computes it (E[x^2] - E[x]^2, clamped at 0), and moves the
+    running ones by ``running = momentum * running + (1 - momentum) *
+    batch``; eval normalises with the running ones. torch's
+    ``BatchNorm1d`` would update the running variance with the unbiased
+    batch variance and weigh the new value by its momentum, so it is not
+    used. Running mean starts at 0 and running variance at 1.
+    """
+
+    momentum = 0.99
+    eps = 1e-5
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+        self.register_buffer("running_mean", torch.zeros(n))
+        self.register_buffer("running_var", torch.ones(n))
+
+    def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        if training:
+            mean = x.mean(dim=0)
+            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+class _GNN(nn.Module):
+    """What every model family shares: the reference's constructor
+    settings, the nonlinearity, and loading flax weights."""
+
+    def __init__(self, num_hid_layers: int, maxk: int, feat_drop: float,
+                 norm: bool, nonlinear: str, compute_dtype: str):
+        super().__init__()
+        if nonlinear not in ("maxk", "relu"):
+            raise ValueError(f"unknown nonlinearity {nonlinear!r}")
+        self.num_hid_layers = num_hid_layers
+        self.maxk = maxk
+        self.feat_drop = feat_drop
+        self.norm = norm
+        self.nonlinear = nonlinear
+        self.compute_dtype = compute_dtype
+
+    def _nonlinear(self, x: torch.Tensor) -> torch.Tensor:
+        return maxk(x, self.maxk) if self.nonlinear == "maxk" \
+            else torch.relu(x)
+
+    def load_flax_params(self, params, batch_stats=None) -> None:
+        """Load a flax model's ``params`` tree (nested dicts of arrays)
+        and, where it has one, its ``batch_stats`` collection. Without
+        ``batch_stats`` the running statistics stay as they are."""
+        from maxk_tpu_torch.models.convert import params_from_flax
+        state = params_from_flax(params, batch_stats)
+        if batch_stats is None:
+            state.update({key: buf for key, buf in self.named_buffers()})
+        self.load_state_dict(state, strict=True)
+
+
+class SAGE(_GNN):
     """GraphSAGE with MaxK aggregation (fc_self sees the post-MaxK x)."""
 
     def __init__(self, in_size: int, hid_size: int, num_hid_layers: int,
@@ -113,16 +194,9 @@ class SAGE(nn.Module):
                  norm: bool = False, nonlinear: str = "maxk",
                  compute_dtype: str = "bfloat16",
                  generator: Optional[torch.Generator] = None):
-        super().__init__()
-        if nonlinear not in ("maxk", "relu"):
-            raise ValueError(f"unknown nonlinearity {nonlinear!r}")
+        super().__init__(num_hid_layers, maxk, feat_drop, norm, nonlinear,
+                         compute_dtype)
         gen = generator if generator is not None else torch.Generator()
-        self.num_hid_layers = num_hid_layers
-        self.maxk = maxk
-        self.feat_drop = feat_drop
-        self.norm = norm
-        self.nonlinear = nonlinear
-        self.compute_dtype = compute_dtype
         # Registration order is flax's creation order.
         self.lin_in = _linear(in_size, hid_size, True, gen)
         for i in range(num_hid_layers):
@@ -166,11 +240,6 @@ class SAGE(nn.Module):
                 x = getattr(self, f"norm_{i}")(x)
         return self.lin_out(x)
 
-    def load_flax_params(self, params) -> None:
-        """Load a flax SAGE's params tree (nested dicts of arrays)."""
-        from maxk_tpu_torch.models.convert import params_from_flax
-        self.load_state_dict(params_from_flax(params), strict=True)
-
 
 class SAGEFused(SAGE):
     """SAGE with fc_self on the pre-MaxK x and the aggregation through the
@@ -183,7 +252,112 @@ class SAGEFused(SAGE):
         return super()._aggregate(graphs, x)
 
 
-_MODELS = {"sage": SAGE, "sage_fused": SAGEFused}
+class GCN(_GNN):
+    """GCN: each layer is Linear -> MaxK/ReLU -> dropout -> GraphConv on
+    the sym-normalised graph (dgl's GraphConv(weight=None, bias=True))
+    -> LayerNorm?"""
+
+    def __init__(self, in_size: int, hid_size: int, num_hid_layers: int,
+                 out_size: int, maxk: int = 32, feat_drop: float = 0.5,
+                 norm: bool = False, nonlinear: str = "maxk",
+                 compute_dtype: str = "bfloat16",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(num_hid_layers, maxk, feat_drop, norm, nonlinear,
+                         compute_dtype)
+        gen = generator if generator is not None else torch.Generator()
+        # Registration order is flax's creation order.
+        self.lin_in = _linear(in_size, hid_size, True, gen)
+        for i in range(num_hid_layers):
+            self.add_module(f"lin_{i}", _linear(hid_size, hid_size, True, gen))
+            self._add_conv_param(i, hid_size)
+            if norm:
+                self.add_module(f"norm_{i}", nn.LayerNorm(hid_size, eps=1e-6))
+        self.lin_out = _linear(hid_size, out_size, True, gen)
+
+    def _add_conv_param(self, i: int, hid_size: int) -> None:
+        self.register_parameter(f"gconv_bias_{i}",
+                                nn.Parameter(torch.zeros(hid_size)))
+
+    def _conv(self, graphs: GraphBundle, x: torch.Tensor,
+              i: int) -> torch.Tensor:
+        return (spmm_t(graphs.g_sym, graphs.g_sym_t, x, self.compute_dtype)
+                + getattr(self, f"gconv_bias_{i}"))
+
+    def forward(self, graphs: GraphBundle, x: torch.Tensor, *,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = torch.relu(self.lin_in(x))
+        for i in range(self.num_hid_layers):
+            x = self._nonlinear(getattr(self, f"lin_{i}")(x))
+            x = dropout(x, self.feat_drop, training, generator)
+            x = self._conv(graphs, x, i)
+            if self.norm:
+                x = getattr(self, f"norm_{i}")(x)
+        return self.lin_out(x)
+
+
+class GIN(GCN):
+    """GIN: GCN's shell with dgl's GINConv(learn_eps=True):
+    (1 + eps_i) x + the sum over neighbours."""
+
+    def _add_conv_param(self, i: int, hid_size: int) -> None:
+        self.register_parameter(f"gin_eps_{i}",
+                                nn.Parameter(torch.zeros(())))
+
+    def _conv(self, graphs: GraphBundle, x: torch.Tensor,
+              i: int) -> torch.Tensor:
+        eps = getattr(self, f"gin_eps_{i}")
+        return (1.0 + eps) * x + spmm_t(graphs.g_sum, graphs.g_sum_t, x,
+                                        self.compute_dtype)
+
+
+class GNNRes(_GNN):
+    """Residual GCN blocks: x_res = res_i(x); GraphConv (sym) + bias ->
+    BatchNorm? -> lin1_i -> ReLU -> dropout -> lin2_i -> MaxK/ReLU;
+    x = relu(x_res + x) -> dropout."""
+
+    def __init__(self, in_size: int, hid_size: int, num_hid_layers: int,
+                 out_size: int, maxk: int = 32, feat_drop: float = 0.5,
+                 norm: bool = False, nonlinear: str = "maxk",
+                 compute_dtype: str = "bfloat16",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(num_hid_layers, maxk, feat_drop, norm, nonlinear,
+                         compute_dtype)
+        gen = generator if generator is not None else torch.Generator()
+        # Registration order is flax's creation order.
+        self.lin_in = _linear(in_size, hid_size, True, gen)
+        for i in range(num_hid_layers):
+            self.add_module(f"res_{i}", _linear(hid_size, hid_size, True, gen))
+            self.register_parameter(f"gconv_bias_{i}",
+                                    nn.Parameter(torch.zeros(hid_size)))
+            if norm:
+                self.add_module(f"norm_{i}", BatchNorm(hid_size))
+            self.add_module(f"lin1_{i}",
+                            _linear(hid_size, hid_size, True, gen))
+            self.add_module(f"lin2_{i}",
+                            _linear(hid_size, hid_size, True, gen))
+        self.lin_out = _linear(hid_size, out_size, True, gen)
+
+    def forward(self, graphs: GraphBundle, x: torch.Tensor, *,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = torch.relu(self.lin_in(x))
+        for i in range(self.num_hid_layers):
+            x_res = getattr(self, f"res_{i}")(x)
+            x = (spmm_t(graphs.g_sym, graphs.g_sym_t, x, self.compute_dtype)
+                 + getattr(self, f"gconv_bias_{i}"))
+            if self.norm:
+                x = getattr(self, f"norm_{i}")(x, training)
+            x = torch.relu(getattr(self, f"lin1_{i}")(x))
+            x = dropout(x, self.feat_drop, training, generator)
+            x = self._nonlinear(getattr(self, f"lin2_{i}")(x))
+            x = torch.relu(x_res + x)
+            x = dropout(x, self.feat_drop, training, generator)
+        return self.lin_out(x)
+
+
+_MODELS = {"sage": SAGE, "sage_fused": SAGEFused, "gcn": GCN, "gin": GIN,
+           "gnn_res": GNNRes}
 
 
 def build_model(name: str, in_size: int, hid_size: int, num_hid_layers: int,
@@ -192,15 +366,11 @@ def build_model(name: str, in_size: int, hid_size: int, num_hid_layers: int,
                 compute_dtype: str = "bfloat16",
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """Model switch of the training driver."""
-    if name in ("gcn", "gin", "gnn_res"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: ROADMAP slice 2")
     try:
         cls = _MODELS[name]
     except KeyError:
         raise ValueError(
-            f"unknown model {name!r}; choose from "
-            f"{sorted(_MODELS) + ['gcn', 'gin', 'gnn_res']}") from None
+            f"unknown model {name!r}; choose from {sorted(_MODELS)}") from None
     return cls(in_size, hid_size, num_hid_layers, out_size, maxk=maxk,
                feat_drop=feat_drop, norm=norm, nonlinear=nonlinear,
                compute_dtype=compute_dtype, generator=generator)

@@ -3,7 +3,7 @@ utils/config.py names) plus ``--device``.
 
 Flags of paths not ported yet are accepted and refused when set:
 ``--n_devices`` / ``--model_parallel`` > 1 and the multi-host flags wait
-for ROADMAP slice 5, ``--profile`` for a later PR.
+for ROADMAP slice 5 (multi-device training).
 """
 
 from __future__ import annotations
@@ -98,9 +98,12 @@ class TrainConfig(argparse.ArgumentParser):
                           help="SpMM input dtype for x (accumulation "
                                "is fp32)")
         self.add_argument("--profile", action="store_true", default=False,
-                          help="Profile trace (not ported yet)")
+                          help="torch.profiler trace (CPU, and CUDA on a "
+                               "CUDA device) of the post-warm-up epochs "
+                               "start+1 .. start+3 into {path}/profile")
         self.add_argument("--timing", action="store_true", default=False,
-                          help="Report per-epoch wall-clock timing")
+                          help="Report per-step device time, and once the "
+                               "aggregation's share of a step")
         self.add_argument("--debug", action="store_true", default=False)
 
     def parse_args(self, args=None, namespace=None):
@@ -120,12 +123,10 @@ class TrainConfig(argparse.ArgumentParser):
                 ("--coordinator", config.coordinator is not None),
                 ("--process_id", config.process_id is not None),
                 ("--local_device_count",
-                 config.local_device_count is not None),
-                ("--profile", config.profile)) if on]
+                 config.local_device_count is not None)) if on]
         if unported:
             self.error(f"{', '.join(unported)}: not ported yet "
-                       f"(ROADMAP.md: multi-device is slice 5, --profile "
-                       f"is queued)")
+                       f"(ROADMAP.md: multi-device is slice 5)")
         if config.path is None:
             ts = time.strftime("%Y%m%d_%H%M%S")
             config.path = (f"experiments/{config.dataset}_{config.model}"

@@ -6,7 +6,11 @@ evaluation every ``eval_every`` epochs with best-val tracking, patience
 early stop, checkpoint every ``save_every`` epochs and resume, and a
 ``final_results.json`` artifact — the JAX package's ``FitLoop`` and
 ``Trainer`` on one torch device. Under ``--timing`` each step is timed
-with CUDA events (host clock on the CPU).
+with CUDA events (host clock on the CPU), and once, after the first
+post-warm-up step, so are L forward aggregations, to log their share of
+the step. Under ``--profile`` a ``torch.profiler`` trace of the
+post-warm-up epochs (CPU, and CUDA on a CUDA device) goes to
+``{path}/profile``, as the JAX package's ``jax.profiler`` trace does.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import profiler
 
 from maxk_tpu_torch.data.datasets import Dataset
 from maxk_tpu_torch.models.models import GraphBundle, build_model
 from maxk_tpu_torch.ops.graph import resolve_device
+from maxk_tpu_torch.ops.spmm import spmm
 from maxk_tpu_torch.train import metrics as metrics_lib
 from maxk_tpu_torch.train.checkpoint import CheckpointManager
 from maxk_tpu_torch.train.optim import make_optimizer
@@ -56,24 +62,49 @@ class FitLoop:
     checkpoints and resume, timing, final_results.json.
 
     Implementors provide: config, logger, writer, device, epoch,
-    train_step(), evaluate_masks(), state_blob(extra), load_blob(blob).
+    train_step(), evaluate_masks(), aggregation_probe(step_s),
+    state_blob(extra), load_blob(blob).
     """
+
+    def _timed(self, fn):
+        """(fn(), seconds): CUDA events on a CUDA device, else the host
+        clock."""
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            return out, start.elapsed_time(end) / 1e3
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
 
     def _timed_step(self):
         """(loss, seconds or None); seconds only under --timing."""
         if not getattr(self.config, "timing", False):
             return self.train_step(), None
+        return self._timed(self.train_step)
+
+    def _start_profile(self) -> profiler.profile:
+        activities = [profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss = self.train_step()
-            end.record()
-            end.synchronize()
-            return loss, start.elapsed_time(end) / 1e3
-        t0 = time.perf_counter()
-        loss = self.train_step()
-        return loss, time.perf_counter() - t0
+            activities.append(profiler.ProfilerActivity.CUDA)
+        prof = profiler.profile(
+            activities=activities,
+            on_trace_ready=profiler.tensorboard_trace_handler(
+                f"{self.config.path}/profile"))
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof: profiler.profile) -> None:
+        """Stop the trace once the device is done, and write it."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        if self.logger:
+            self.logger.info(f"Profile trace in {self.config.path}/profile")
 
     def fit(self) -> TrainResults:
         cfg = self.config
@@ -99,9 +130,22 @@ class FitLoop:
         history = []
         early_stopped = False
         t_start = time.time()
+        # --profile: the post-warm-up epochs, as the JAX package traces.
+        profile_epochs = None
+        if getattr(cfg, "profile", False):
+            profile_epochs = (start_epoch + 1,
+                              min(start_epoch + 4, cfg.epochs))
+        prof = None
         epoch = start_epoch - 1
         for epoch in range(start_epoch, cfg.epochs):
+            if profile_epochs and epoch == profile_epochs[0]:
+                prof = self._start_profile()
             loss, step_s = self._timed_step()
+            if step_s is not None and epoch == start_epoch + 1:
+                self.aggregation_probe(step_s)
+            if prof is not None and epoch + 1 == profile_epochs[1]:
+                self._stop_profile(prof)
+                prof = None
 
             if (epoch % max(1, getattr(cfg, "eval_every", 1))) == 0 \
                     or epoch == cfg.epochs - 1:
@@ -148,6 +192,11 @@ class FitLoop:
                     best_epoch=best["epoch"], bad_evals=bad_evals)))
             if early_stopped:
                 break
+
+        # Early stop may break out inside the traced epochs: write the
+        # trace all the same.
+        if prof is not None:
+            self._stop_profile(prof)
 
         _, _, final_test = self.evaluate_masks()
         if self.logger:
@@ -234,6 +283,28 @@ class Trainer(FitLoop):
         self.optimizer.step()
         self.epoch += 1
         return loss.detach()
+
+    @torch.no_grad()
+    def aggregation_probe(self, step_s: float) -> None:
+        """Log the aggregation's share of a train step: L forward
+        aggregations on the model's graph at (V, hidden_dim), as the JAX
+        package's probe reports it."""
+        g = self.graphs.g_mean or self.graphs.g_sym or self.graphs.g_sum
+        h = torch.ones(g.n_nodes, self.config.hidden_dim, device=self.device)
+        cd = getattr(self.config, "compute_dtype", "bfloat16")
+        spmm(g, h, cd)                                 # warm-up
+
+        def layers():
+            for _ in range(self.config.hidden_layers):
+                spmm(g, h, cd)
+
+        _, agg_s = self._timed(layers)
+        if self.logger:
+            self.logger.info(
+                f"Aggregation time: {agg_s*1e3:.1f} ms of "
+                f"{step_s*1e3:.1f} ms step "
+                f"({100.0*agg_s/max(step_s, 1e-9):.1f}% — forward only; "
+                f"backward aggregation roughly doubles it)")
 
     @torch.no_grad()
     def eval_logits(self) -> torch.Tensor:

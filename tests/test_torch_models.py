@@ -196,12 +196,6 @@ def test_dropout_only_in_training(data):
     assert not torch.equal(t1, t2) and not torch.equal(t1, e1)
 
 
-@pytest.mark.parametrize("name", ["gcn", "gin", "gnn_res"])
-def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        build_model(name, 8, 16, 2, 3)
-
-
 def test_symmetric_bundle_matches_transpose_built():
     csr = random_graph(120, 5.0, seed=3, weighted=False)
     rows, cols = csr.to_coo()

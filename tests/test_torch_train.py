@@ -218,12 +218,70 @@ def test_cli_trains_three_epochs(tmp_path):
                     str(tmp_path), "--save_every", "0", "--timing"])
     assert res.epochs_run == 3 and len(res.history) == 3
     assert (tmp_path / "final_results.json").exists()
-    assert (tmp_path / "synthetic.log").exists()
+    log = (tmp_path / "synthetic.log").read_text()
+    # --timing: the aggregation's share of the step, once.
+    assert log.count("Aggregation time: ") == 1
+    assert "ms step (" in log and "backward aggregation" in log
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin", "gnn_res"])
+def test_cli_trains_each_model(tmp_path, model):
+    res = cli_main(["--dataset", "synthetic", "--device", "cpu",
+                    "--model", model, "--norm", "--epochs", "2",
+                    "--hidden_dim", "32", "--hidden_layers", "2",
+                    "--maxk", "8", "--path", str(tmp_path),
+                    "--save_every", "0"])
+    assert res.epochs_run == 2 and len(res.history) == 2
+    assert all(np.isfinite(h["loss"]) for h in res.history)
+
+
+def test_gnn_res_checkpoint_restores_running_stats(tmp_path):
+    _, ds = _dataset(seed=5)
+    cfg = _Cfg(path=str(tmp_path), model="gnn_res", epochs=3, save_every=3)
+    trained = Trainer(cfg, ds)
+    trained.fit()
+    norm = trained.model.norm_1
+    assert not torch.allclose(norm.running_var, torch.ones_like(
+        norm.running_var))
+    restored = Trainer(cfg, ds)
+    blob, step = CheckpointManager(tmp_path / "ckpt").restore()
+    restored.load_blob(blob)
+    assert step == 3
+    for i in range(cfg.hidden_layers):
+        a = getattr(trained.model, f"norm_{i}")
+        b = getattr(restored.model, f"norm_{i}")
+        assert torch.equal(a.running_mean, b.running_mean)
+        assert torch.equal(a.running_var, b.running_var)
+    assert torch.equal(trained.eval_logits(), restored.eval_logits())
+
+
+def _traces(path):
+    return sorted((path / "profile").glob("*.pt.trace.json"))
+
+
+def test_cli_profile_writes_trace(tmp_path):
+    cli_main(["--dataset", "synthetic", "--device", "cpu", "--epochs", "4",
+              "--hidden_dim", "32", "--path", str(tmp_path),
+              "--save_every", "0", "--profile"])
+    (trace,) = _traces(tmp_path)
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert "Profile trace in " in (tmp_path / "synthetic.log").read_text()
+
+
+def test_profile_written_on_early_stop(tmp_path):
+    """Early stop at epoch 1 breaks out of the traced epochs 1..3: the
+    trace is still written."""
+    _, ds = _dataset(seed=6)
+    cfg = _Cfg(path=str(tmp_path), epochs=50, w_lr=0.0, patience=1)
+    cfg.profile = True
+    res = Trainer(cfg, ds).fit()
+    assert res.early_stopped and res.epochs_run == 2
+    assert len(_traces(tmp_path)) == 1
 
 
 @pytest.mark.parametrize("flag", [["--n_devices", "2"],
                                   ["--model_parallel", "2"],
-                                  ["--profile"],
                                   ["--num_processes", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(SystemExit):

@@ -38,10 +38,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  11 accuracy     the golden synthetic recipe's mean best_test over 16
                  init seeds vs 0.9847 (phases 11 and 16 run GOLDEN_PROCS
                  seeds at a time, each in a process of its own)
- 12 kernels      per kernel: launches in phases 9 and 14 (K1, K2), 10 (K3,
-                 K4) or 8 (the wide kernel's two entries), max error, times,
-                 bound; K1 and K4 each on randn x, on phase 3's integer
-                 ties and on the x each of the 4 hidden layers hands it
+ 12 kernels      per kernel: launches in phases 9, 14 and 17 (K1, K2), 10
+                 and 17 (K3, K4) or 8 (the wide kernel's two entries), max
+                 error, times, bound; K1 and K4 each on randn x, on phase
+                 3's integer ties and on the x each of the 4 hidden layers
+                 hands it
                  in a train step (K4's on the CBSR route), with their mean
                  descent steps a row and share of the byte bound (the
                  last held bit-equal to the plain version); the wide
@@ -71,6 +72,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  GIN vs 0.9990 and 1.0000; GNN_res's over seeds 97-128 vs
                  the JAX reference's over the same seeds, and its count
                  of seeds below 0.93 vs the reference's (GOLDEN_REF)
+ 17 harness      the benchmark harness (maxk_tpu_torch/bench/): the
+                 gather-rate probe of the roofline model; benchmark_graph
+                 on syn_small_d64 (validated, with GNNA, COO and the
+                 fused mask) and on phase 9's graph (its k = 32 forward
+                 vs torch.sparse.mm), each column's K1-K4 launches for
+                 one call (HARNESS_COLUMNS); torch.sparse.mm beside each
+                 baseline; analyze_speedups; the headline entry point
+                 (python -m maxk_tpu_torch.bench.headline) as a
+                 subprocess, its one JSON line checked
 Each new phase prints its seconds. The kernels line comes last but two.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing any result.
@@ -650,6 +660,177 @@ def op_breakdown(kernels: list, n_steps: int, top: int = 15) -> dict:
              "ms": t / per, "group": op_group(name)}
             for name, (t, calls) in sorted(by_kernel.items(),
                                            key=lambda kv: -kv[1][0])[:top]]}
+
+
+# What one call of each harness column launches (phase 17): the CBSR
+# forward is the expansion then K2, the backward K2 then K3, the mask
+# route's forward K1 then K2; COO and GNNA are torch ops.
+HARNESS_COLUMNS = {
+    "baseline_spmm": {"k2": 1}, "coo_spmm": {}, "gnna_sag": {},
+    "topk": {"k4": 1}, "maxk": {"k2": 1}, "maxk_fused_mask": {"k1": 1,
+                                                              "k2": 1},
+    "baseline_spmm_T": {"k2": 1}, "maxk_backward": {"k2": 1, "k3": 1}}
+
+
+def harness_phase(cell_csr, counted: dict, k4_ms: float) -> dict:
+    """Phase 17: the port's benchmark harness (bench/) on the card.
+
+    - the gather-rate probe over the cell graph's cols at D = 256 bf16,
+      beside K2's own gather rate and the roofline model's constant;
+    - benchmark_graph on syn_small_d64 (validated against the host
+      oracle, with GNNA, COO and the fused mask) and on the cell graph
+      (host oracle off; its k = 32 forward held to torch.sparse.mm at f32
+      and at the bf16 operand with sum_error_ratio), with every count set
+      to 0 just before and read just after, and each column's launches
+      for one call checked against HARNESS_COLUMNS;
+    - cuSPARSE (torch.sparse.mm, f32) and K2 at f32 beside each graph's
+      baseline; the CBSR forward against the sum of its parts;
+    - analyze_speedups over both graphs;
+    - python -m maxk_tpu_torch.bench.headline in a subprocess, its one
+      JSON line parsed.
+    Returns the kernels' launches in the two benchmark_graph runs."""
+    from maxk_tpu_torch.bench import harness, roofline
+    from maxk_tpu_torch.ops.cbsr import cbsr_expand, cbsr_topk
+    from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
+    from maxk_tpu_torch.ops.graph import DeviceCSR
+    from maxk_tpu_torch.ops.spgemm import spgemm_forward_cbsr
+    from maxk_tpu_torch.ops.spmm import spmm
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def counts() -> dict:
+        return {name: fn.launches for name, fn in counted.items()}
+
+    # -- the gather rate: the probe reads K2's gathers and nothing else.
+    g_cell = DeviceCSR.from_csr(cell_csr, dev)
+    e, d = g_cell.n_edges, harness.DIM_ORIGIN
+    x16 = torch.rand(cell_csr.n_nodes, d, device=dev).to(torch.bfloat16)
+    gathered = e * d * 2
+    probe = {}
+    for in_flight in (4, 8):
+        ms = time_ms(lambda: roofline.gather_probe(x16, g_cell.indices,
+                                                   in_flight))
+        probe[f"in_flight_{in_flight}"] = {
+            "ms": ms, "bytes_per_s": gathered / ms * 1e3}
+    k2_bf16_ms = time_ms(lambda: spmm_csr(g_cell, x16))
+    probe["k2_bf16"] = {"ms": k2_bf16_ms,
+                        "bytes_per_s": gathered / k2_bf16_ms * 1e3}
+    probe["model_gather_bytes_per_s"] = roofline.H100["gather_bytes_per_s"]
+    del x16, g_cell
+
+    # -- each column's launches for one call, beside the harness's timing.
+    real_time_fn = harness.time_fn
+    per_call = []
+
+    def counting_time_fn(fn, *args, **kwargs):
+        before = counts()
+        fn()
+        torch.cuda.synchronize()
+        per_call.append({n: c - before[n] for n, c in counts().items()})
+        return real_time_fn(fn, *args, **kwargs)
+
+    graphs = [("syn_small_d64", harness.synthetic_by_name("syn_small_d64"),
+               True), ("cell", cell_csr, False)]
+    results, logs, columns, cusparse = [], {}, {}, {}
+    for fn in counted.values():
+        fn.launches = 0
+    harness.time_fn = counting_time_fn
+    try:
+        for name, csr, validate in graphs:
+            lines = []
+            per_call.clear()
+            results.append(harness.benchmark_graph(
+                csr, name, validate=validate, run_gnna=True, run_coo=True,
+                run_fused_mask=True, log=lines.append, device=dev))
+            logs[name] = lines
+            kernels = [ln.split()[4] for ln in lines
+                       if not ln.startswith("#")]
+            check(len(kernels) == len(per_call),
+                  f"{name}: {len(kernels)} timed columns, {len(per_call)} "
+                  f"time_fn calls")
+            for kernel, got in zip(kernels, per_call):
+                want = {n: HARNESS_COLUMNS[kernel].get(n, 0)
+                        for n in counted}
+                check(got == want, f"{name} {kernel}: one call launched "
+                                   f"{got}, expected {want}")
+            columns[name] = {kernel: {n: c for n, c in got.items() if c}
+                             for kernel, got in zip(kernels, per_call)}
+    finally:
+        harness.time_fn = real_time_fn
+    launches = counts()
+    for name in ("k1", "k2", "k3", "k4"):
+        check(launches[name] > 0, f"the harness never launched {name}")
+    check(launches["k1_wide"] == launches["k4_wide"] == 0,
+          f"the harness at D = 256 launched the wide kernel: {launches}")
+    small, cell = results
+    check(small.validation["passed"]
+          and small.validation["mean_err"] < 1e-3
+          and small.validation["bwd_mean_err"] < 1e-3,
+          f"syn_small_d64 failed validation: {small.validation}")
+
+    # -- cuSPARSE beside each baseline; the cell's k = 32 forward held to
+    # it; the CBSR forward against the sum of its parts.
+    for name, csr, _ in graphs:
+        csr_v, x_np, _ = harness._operands(csr, d, 123)
+        g = DeviceCSR.from_csr(csr_v, dev)
+        x = torch.from_numpy(x_np).to(dev)
+        sparse = torch_sparse(g)
+        cusparse[name] = {
+            "torch_sparse_f32_ms": time_ms(lambda: torch.sparse.mm(sparse,
+                                                                   x)),
+            "k2_f32_ms": time_ms(lambda: spmm(g, x, torch.float32)),
+            "baseline_ms": [r for r in results if r.graph == name][0]
+            .baseline_ms}
+        if name == "cell":
+            v, s = cbsr_topk(x, 32)
+            ratios = {}
+            for cd in (torch.float32, torch.bfloat16):
+                y = spgemm_forward_cbsr(g, v, s, d, cd)
+                xe = cbsr_expand(v, s, d).to(cd).float()
+                ref = torch.sparse.mm(sparse, xe)
+                ratios[str(cd)[6:]] = sum_error_ratio(y, ref, g, xe.abs())
+            check(max(ratios.values()) <= 1.0,
+                  f"cell k=32 CBSR forward off torch.sparse.mm: "
+                  f"error/bound {ratios}")
+            cusparse[name]["k32_forward_err_over_sum_bound"] = ratios
+            parts = {"cbsr_expand_ms": time_ms(lambda: cbsr_expand(v, s, d)),
+                     "spmm_bf16_ms": time_ms(lambda: spmm(g, x))}
+            parts["sum_ms"] = sum(parts.values())
+            parts["harness_forward_ms"] = cell.forward_ms[32]
+            parts["harness_over_sum"] = cell.forward_ms[32] / parts["sum_ms"]
+            cusparse[name]["forward_parts"] = parts
+            del v, s, y, xe, ref
+        del g, x, sparse
+
+    analysis = []
+    summary = harness.analyze_speedups(results, log=analysis.append)
+
+    # -- the headline entry point, as a user runs it.
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "maxk_tpu_torch.bench.headline"],
+        capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    check(proc.returncode == 0,
+          f"headline exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out_lines = proc.stdout.strip().splitlines()
+    check(len(out_lines) == 1, f"headline printed {out_lines}")
+    head = json.loads(out_lines[0])
+    check(set(head) == {"metric", "value", "unit", "vs_baseline",
+                        "train_step_ms"}
+          and all(math.isfinite(head[key]) and head[key] > 0
+                  for key in ("value", "vs_baseline", "train_step_ms")),
+          f"headline's JSON line: {head}")
+
+    emit("harness", gather_probe=probe,
+         results=[r.as_json() for r in results], logs=logs,
+         launches_per_call=columns, launches=launches, cusparse=cusparse,
+         k4_cell_k32_harness_ms=cell.topk_ms[32], k4_phase12_randn_ms=k4_ms,
+         analysis=analysis, geomean_speedups=summary, headline=head,
+         headline_seconds=round(time.perf_counter() - t1, 3),
+         seconds=round(time.perf_counter() - t0, 3))
+    return launches
 
 
 def main() -> int:
@@ -1305,9 +1486,10 @@ def main() -> int:
                "torch.sparse.mm on the bf16-rounded x in f32 (K2), "
                "torch.gather with int64 indices (K3), "
                "torch.topk(sorted=False)+sort+gather (K4, cbsr_topk_wide); "
-               "launches: phases 9 and 14 (K1, K2: SAGE, then GCN, GIN "
-               "and GNN_res), phase 10 (K3, K4), phase 8's maxk_spgemm at "
-               "D=1280 (the wide kernel)",
+               "launches: phases 9, 14 and 17 (K1, K2: SAGE, then GCN, "
+               "GIN and GNN_res, then the benchmark harness), phases 10 "
+               "and 17 (K3, K4), phase 8's maxk_spgemm at D=1280 (the wide "
+               "kernel)",
          topk_wide_by_input=wide_timing,
          maxk_topk_by_input=k1_by_input, cbsr_topk_by_input=k4_by_input,
          cbsr_gather_sectors=k3_sectors, cbsr_route_glue=glue,
@@ -1440,11 +1622,17 @@ def main() -> int:
     for row in golden_models.values():
         check_golden(row)
 
-    # K1's and K2's launches on the main paths: SAGE (phase 9) and GCN,
-    # GIN and GNN_res (phase 14).
-    main_launches = {n: launches[n] + sum(m["launches"][n]
-                                          for m in model_steps.values())
+    # -- 17 the benchmark harness ------------------------------------------
+    bench_launches = harness_phase(csr, counted, k4_ms)
+
+    # The launches on the main paths: K1 and K2 in SAGE (phase 9), GCN, GIN
+    # and GNN_res (phase 14) and the harness (phase 17); K3 and K4 in the
+    # CBSR route (phase 10) and the harness.
+    main_launches = {n: launches[n] + bench_launches[n]
+                     + sum(m["launches"][n] for m in model_steps.values())
                      for n in ("k1", "k2")}
+    main_launches.update({n: launches_c[n] + bench_launches[n]
+                          for n in ("k3", "k4")})
 
     def entry(name, source, replaces, n, err, ms, plain, bound, by, lib):
         return {"name": name, "route": "cuda",
@@ -1461,10 +1649,10 @@ def main() -> int:
               main_launches["k2"], k2_err, k2_ms, k2_plain, k2_bound, k2_by,
               k2_lib),
         entry("cbsr_gather", "cbsr_gather.cu", "pallas_gather.py:46",
-              launches_c["k3"], 0.0, k3_ms, k3_plain, k3_bound, k3_by,
+              main_launches["k3"], 0.0, k3_ms, k3_plain, k3_bound, k3_by,
               k3_lib),
         entry("cbsr_topk", "cbsr_topk.cu", "pallas_topk.py:102",
-              launches_c["k4"], k4_err, k4_ms, k4_plain, k4_bound, k4_by,
+              main_launches["k4"], k4_err, k4_ms, k4_plain, k4_bound, k4_by,
               k4_lib),
         entry("maxk_wide", "topk_wide.cu", "pallas_topk.py:95",
               wide_launches["k1_wide"], wide_err["maxk_wide"], k1w["ms"],

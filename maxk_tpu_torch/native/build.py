@@ -29,8 +29,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "maxk_tpu_torch"
+# Every source in csrc/: the kernels, and the roofline's gather probe.
 KERNELS = ("maxk_topk", "cbsr_topk", "spmm_csr", "cbsr_gather",
-           "topk_wide")
+           "topk_wide", "gather_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,6 +1,8 @@
 """SpMM: sparse CSR adjacency times dense features.
 
 - ``spmm_dense_oracle``: densify A and matmul in float64 (tests only).
+- ``spmm_coo``: COO SpMM in torch ops, the benchmark harness's COO
+  comparator (the role cuSPARSE's COO SpMM plays in the reference).
 - ``spmm``: the production product on K2 (``ops/cuda_spmm.py``), with
   the JAX package's numerics: ``compute_dtype`` bfloat16 (the default for
   float32 x) rounds x to bfloat16, keeps the edge values in float32 and
@@ -32,6 +34,27 @@ def spmm_dense_oracle(csr: CSRGraph, x: np.ndarray) -> np.ndarray:
     rows, cols = csr.to_coo()
     np.add.at(a, (rows, cols), csr.values.astype(np.float64))
     return (a @ np.asarray(x, np.float64)).astype(np.float32)
+
+
+# spmm_coo gathers at most this many (edge, feature) products at once, so
+# it never holds E x D of them (13.4 GB at E = 13.1 M, D = 256, float32).
+_COO_CHUNK_ELEMS = 1 << 26
+
+
+def spmm_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             x: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """out[rows[e]] += vals[e] * x[cols[e]], in the promoted dtype of vals
+    and x: ``index_add_`` of the products, chunked over edges. On CUDA
+    ``index_add_`` adds with atomics, in no fixed order, so two calls may
+    differ in the last bits of a row's sum."""
+    out = torch.zeros((n_nodes, x.shape[1]),
+                      dtype=torch.promote_types(vals.dtype, x.dtype),
+                      device=x.device)
+    step = max(1, _COO_CHUNK_ELEMS // max(1, x.shape[1]))
+    for lo in range(0, rows.shape[0], step):
+        hi = lo + step
+        out.index_add_(0, rows[lo:hi], vals[lo:hi, None] * x[cols[lo:hi]])
+    return out
 
 
 def resolve_compute_dtype(compute_dtype: DTypeLike,

@@ -81,6 +81,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  baseline; analyze_speedups; the headline entry point
                  (python -m maxk_tpu_torch.bench.headline) as a
                  subprocess, its one JSON line checked
+ 18 dist         row-partitioned training on 2 ranks at phase 9's cell
+                 (parallel/), one card each over NCCL where the machine
+                 has two, else both on cuda:0 over gloo: the seconds of
+                 shard_bundle and plan_halo, the halo plan (rows received,
+                 bytes sent per forward aggregation on the CBSR wire and
+                 dense, per backward dy exchange); one layer's
+                 maxk_spgemm and GCN's spmm_t (forward and dx) on each
+                 shard bit-equal to the single-device CBSR route; 3 f32
+                 steps at dropout 0 within rtol 1e-5 of one device (rank
+                 0's first gradients rtol 1e-5, atol 1e-6); 5 bf16 SAGE
+                 steps and an eval (K1, K2, K3, K4 = 4, 8, 4, 4 a step and
+                 rank) and 2 each of GCN and GNN_res (4, 8; GNN_res's
+                 BatchNorm sums over the ranks); one exchange alone (dense
+                 bf16 rows, the CBSR wire); the CLI's --n_devices 2 as a
+                 subprocess
 Each new phase prints its seconds. The kernels line comes last but two.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing any result.
@@ -833,6 +848,267 @@ def harness_phase(cell_csr, counted: dict, k4_ms: float) -> dict:
     return launches
 
 
+# What one rank of phase 18 launches a step, by kernel id.
+DIST_SAGE_STEP = {"k1": 4, "k2": 8, "k3": 4, "k4": 4, "k1_wide": 0,
+                  "k4_wide": 0}
+DIST_GCN_STEP = {"k1": 4, "k2": 8, "k3": 0, "k4": 0, "k1_wide": 0,
+                 "k4_wide": 0}
+# The families phase 18 runs on 2 ranks: SAGE, and those of the dense
+# exchange (GCN; GNN_res, whose BatchNorm sums over the ranks).
+DIST_RUNS = (("sage", 5, DIST_SAGE_STEP), ("gcn", 2, DIST_GCN_STEP),
+             ("gnn_res", 2, DIST_GCN_STEP))
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper, by kernel id; each counts its launches."""
+    from maxk_tpu_torch.ops.cuda_gather import cbsr_gather_forward
+    from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
+    from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
+                                              cbsr_topk_forward_wide,
+                                              maxk_forward, maxk_forward_wide)
+    return {"k1": maxk_forward, "k2": spmm_csr, "k3": cbsr_gather_forward,
+            "k4": cbsr_topk_forward, "k1_wide": maxk_forward_wide,
+            "k4_wide": cbsr_topk_forward_wide}
+
+
+def dist_rank(group, job: dict) -> dict:
+    """Phase 18 on one rank of `group` (run by parallel.launch.spawn):
+    the shards and the halo plan, one layer's aggregation against the
+    single-device CBSR route, 3 f32 steps, 5 bf16 steps and an eval of
+    SAGE, 2 steps of GCN and of GNN_res, and one exchange alone. Returns
+    what the parent checks and prints."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from maxk_tpu_torch.models.models import GraphBundle
+    from maxk_tpu_torch.ops.cbsr import cbsr_topk
+    from maxk_tpu_torch.ops.spgemm import cbsr_wire, maxk_spgemm
+    from maxk_tpu_torch.ops.spmm import spmm_t
+    from maxk_tpu_torch.parallel.dist_train import DistTrainer
+    from maxk_tpu_torch.parallel.halo import halo_nbytes, plan_halo
+    from maxk_tpu_torch.parallel.partition import (local_bundle,
+                                                   shard_bundle, shard_graph)
+    ds, cfg, k = job["ds"], job["cfg"], job["cfg"]["maxk"]
+    dev, rank = group.device, group.rank
+    counted = kernel_counters()
+
+    def counts() -> dict:
+        return {name: fn.launches for name, fn in counted.items()}
+
+    out = dict(rank=rank, device=str(dev), backend=group.backend)
+    t0 = time.perf_counter()
+    mean = shard_bundle(ds.csr, group.size, ("mean",), symmetric=True)
+    out["shard_bundle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_halo(shard_graph(ds.csr.normalize("mean"), group.size,
+                          halo=False).shards, mean.rows_per_shard)
+    out["plan_halo_s"] = time.perf_counter() - t0
+    local = local_bundle(mean, group)
+    spec, spec_t = local.g_mean.exchange, local.g_mean_t.exchange
+    d = ds.features.shape[1]
+    out["halo"] = dict(
+        rows_per_rank=mean.rows_per_shard,
+        recv_rows=sum(spec.recv_counts), send_rows=sum(spec.send_counts),
+        fwd_cbsr_wire_bytes=halo_nbytes(spec, 3 * k, 1),
+        fwd_dense_bf16_bytes=halo_nbytes(spec, d, 2),
+        bwd_dy_bf16_bytes=halo_nbytes(spec_t, d, 2))
+
+    # One layer's aggregation: this rank's rows against the single-device
+    # CBSR route's on the whole graph (bf16 compute), forward and dx; and
+    # spmm_t on GCN's g_sym.
+    t0 = time.perf_counter()
+    sym = shard_bundle(ds.csr, group.size, ("sym",), symmetric=True)
+    local_sym = local_bundle(sym, group)
+    single = GraphBundle.from_csr(ds.csr, norms=("mean", "sym"),
+                                  symmetric=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(ds.csr.n_nodes, d, device=dev, generator=gen)
+    dy = torch.randn(ds.csr.n_nodes, d, device=dev, generator=gen)
+    rows = slice(rank * mean.rows_per_shard, (rank + 1) * mean.rows_per_shard)
+
+    def layer(fn, g, g_t, xs, dys):
+        xg = xs.clone().requires_grad_(True)
+        y = fn(g, g_t, xg)
+        y.backward(dys)
+        return y.detach(), xg.grad
+
+    spgemm = lambda g, g_t, xg: maxk_spgemm(g, g_t, xg, k)
+    with cbsr_env():
+        want = {"maxk_spgemm": layer(spgemm, single.g_mean, single.g_mean_t,
+                                     x, dy),
+                "spmm_sym": layer(spmm_t, single.g_sym, single.g_sym_t, x,
+                                  dy)}
+    got = {"maxk_spgemm": layer(spgemm, local.g_mean, local.g_mean_t,
+                                x[rows], dy[rows]),
+           "spmm_sym": layer(spmm_t, local_sym.g_sym, local_sym.g_sym_t,
+                             x[rows], dy[rows])}
+    out["bit_equal"] = {
+        f"{name}_{part}": bool(torch.equal(
+            got[name][i].view(torch.int32),
+            want[name][i][rows].view(torch.int32)))
+        for name in got for i, part in enumerate(("y", "dx"))}
+    out["bit_equal_seconds"] = time.perf_counter() - t0
+    del single, want, got, x, dy
+
+    # 3 steps at f32 and dropout 0, held to one device by the parent.
+    f32 = DistTrainer(types.SimpleNamespace(
+        **{**cfg, "compute_dtype": "float32", "dropout": 0.0}), ds, group,
+        sharded=mean)
+    losses = [float(f32.train_step())]
+    if rank == 0:
+        out["f32_grads"] = {n: p.grad.cpu().numpy()
+                            for n, p in f32.model.named_parameters()}
+    losses += [float(f32.train_step()) for _ in range(2)]
+    out["f32_losses"] = losses
+    del f32
+
+    def run(run_cfg, sharded, n_steps, per_step):
+        """n_steps and one eval of a fresh DistTrainer, every count set to
+        0 just before and read just after; each step's launches must be
+        per_step's. Returns (steps, launches, peak GiB)."""
+        trainer = DistTrainer(types.SimpleNamespace(**run_cfg), ds, group,
+                              sharded=sharded)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counted.values():
+            fn.launches = 0
+        steps = []
+        for _ in range(n_steps):
+            before = counts()
+            t1 = time.perf_counter()
+            loss = float(trainer.train_step())
+            torch.cuda.synchronize(dev)
+            steps.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                              loss=loss, **{n: c - before[n]
+                                            for n, c in counts().items()}))
+        logits = trainer.eval_logits()
+        torch.cuda.synchronize(dev)
+        launches = counts()
+        for s in steps:
+            check(math.isfinite(s["loss"]), f"rank {rank}: loss {s['loss']}")
+            check(all(s[n] == c for n, c in per_step.items()),
+                  f"rank {rank}: launches per step {s} != {per_step}")
+        check(tuple(logits.shape) == (ds.csr.n_nodes, ds.num_classes)
+              and bool(torch.isfinite(logits).all()),
+              f"rank {rank}: bad eval logits")
+        return (steps, launches,
+                round(torch.cuda.max_memory_allocated(dev) / 2**30, 3))
+
+    for model, n_steps, per_step in DIST_RUNS:
+        out[model] = run({**cfg, "model": model},
+                         mean if model == "sage" else sym, n_steps, per_step)
+
+    # One exchange alone, as a step makes it: dense bf16 rows (a backward
+    # dy, or GCN's forward) and the CBSR wire (SAGE's forward). Host clock
+    # around each call, which ends in a synchronize; median of 5.
+    def exchange_ms(table):
+        spec.table(table)
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            spec.table(table)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(times)
+
+    x_l = torch.randn(mean.rows_per_shard, d, device=dev, generator=gen)
+    values, selector = cbsr_topk(x_l, k)
+    out["exchange_ms"] = dict(
+        dense_bf16=exchange_ms(x_l.to(torch.bfloat16)),
+        cbsr_wire=exchange_ms(cbsr_wire(values, selector, d,
+                                        torch.bfloat16)))
+    return out
+
+
+def dist_phase(ds, bundle, cfg) -> dict:
+    """Phase 18: 2 ranks of DistTrainer at phase 9's cell, one card each
+    over NCCL where there are two, else both on cuda:0 over gloo; the f32
+    step held to one device; the CLI's --n_devices 2. Returns the ranks'
+    launches of the main path (the bf16 runs of DIST_RUNS), by kernel
+    id."""
+    from maxk_tpu_torch.parallel.launch import spawn
+    from maxk_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    f32_cfg = types.SimpleNamespace(
+        **{**vars(cfg), "compute_dtype": "float32", "dropout": 0.0})
+    ref = Trainer(f32_cfg, ds, graphs=bundle)
+    ref_losses = [float(ref.train_step())]
+    ref_grads = {n: p.grad.cpu().numpy()
+                 for n, p in ref.model.named_parameters()}
+    ref_losses += [float(ref.train_step()) for _ in range(2)]
+    del ref
+    torch.cuda.empty_cache()
+
+    n_ranks = 2
+    backend = "nccl" if torch.cuda.device_count() >= n_ranks else "gloo"
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn(dist_rank, n_ranks, f"file://{tmp}/store", "cuda",
+                      args=(dict(ds=ds, cfg=vars(cfg)),))
+    ranks_s = time.perf_counter() - t1
+    for r in ranks:
+        check(r["backend"] == backend,
+              f"rank {r['rank']} ran over {r['backend']}, not {backend}")
+        check(all(r["bit_equal"].values()),
+              f"rank {r['rank']}: shard rows not bit-equal to one device: "
+              f"{r['bit_equal']}")
+        check(np.allclose(r["f32_losses"], ref_losses, rtol=1e-5, atol=0),
+              f"rank {r['rank']}: f32 losses {r['f32_losses']} vs one "
+              f"device {ref_losses}")
+    grads = ranks[0]["f32_grads"]
+    grad_err = {n: float(np.max(np.abs(grads[n] - g)
+                                / (1e-6 + 1e-5 * np.abs(g))))
+                for n, g in ref_grads.items()}
+    check(grads.keys() == ref_grads.keys() and max(grad_err.values()) <= 1.0,
+          f"rank 0's gradients off one device's: error/tolerance "
+          f"{grad_err}")
+
+    def summary(r, name):
+        steps, launches, peak = r[name]
+        return dict(steps=steps,
+                    median_step_ms=statistics.median(s["ms"] for s in steps),
+                    first_loss=steps[0]["loss"], launches=launches,
+                    launches_per_step={n: steps[-1][n] for n in launches},
+                    peak_mem_gib=peak)
+
+    # The CLI: 2 ranks spawned by one process, on the card.
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = subprocess.run(
+            [sys.executable, "-m", "maxk_tpu_torch.train", "--dataset",
+             "synthetic", "--n_devices", "2", "--epochs", "2",
+             "--save_every", "0", "--path", tmp],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600)
+    epochs = re.findall(r"Epoch \d+/\d+\| Loss ([\d.]+)", cli.stdout
+                        + cli.stderr)
+    check(cli.returncode == 0 and len(epochs) == 2,
+          f"python -m maxk_tpu_torch.train --n_devices 2: exit "
+          f"{cli.returncode}, {len(epochs)} epoch lines\n"
+          f"{(cli.stdout + cli.stderr)[-3000:]}")
+    emit("dist", config="4x256 maxk k=32 norm dropout=0.5 bf16 on 2 ranks",
+         V=ds.csr.n_nodes, E=ds.csr.n_edges, backend=backend,
+         devices=[r["device"] for r in ranks],
+         shard_bundle_s=[r["shard_bundle_s"] for r in ranks],
+         plan_halo_s=[r["plan_halo_s"] for r in ranks],
+         halo=[r["halo"] for r in ranks],
+         bit_equal_to_one_device=[r["bit_equal"] for r in ranks],
+         bit_equal_seconds=[r["bit_equal_seconds"] for r in ranks],
+         f32_losses=[r["f32_losses"] for r in ranks],
+         f32_losses_one_device=ref_losses,
+         f32_tolerance="losses rtol 1e-5; rank 0's gradients after the "
+                       "first all-reduce rtol 1e-5, atol 1e-6",
+         f32_grad_err_over_tol=max(grad_err.values()),
+         exchange_ms=[r["exchange_ms"] for r in ranks],
+         **{model: [summary(r, model) for r in ranks]
+            for model, _, _ in DIST_RUNS},
+         cli=dict(exit=cli.returncode, losses=[float(x) for x in epochs],
+                  seconds=round(time.perf_counter() - t2, 3)),
+         ranks_seconds=round(ranks_s, 3),
+         seconds=round(time.perf_counter() - t0, 3))
+    return {n: sum(r[model][1][n] for r in ranks
+                   for model, _, _ in DIST_RUNS) for n in DIST_SAGE_STEP}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -863,9 +1139,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     # Every kernel wrapper's launch count, by kernel id.
-    counted = {"k1": maxk_forward, "k2": spmm_csr, "k3": cbsr_gather_forward,
-               "k4": cbsr_topk_forward, "k1_wide": maxk_forward_wide,
-               "k4_wide": cbsr_topk_forward_wide}
+    counted = kernel_counters()
 
     def counts() -> dict:
         return {name: fn.launches for name, fn in counted.items()}
@@ -1625,41 +1899,48 @@ def main() -> int:
     # -- 17 the benchmark harness ------------------------------------------
     bench_launches = harness_phase(csr, counted, k4_ms)
 
+    # -- 18 row-partitioned training on 2 ranks ----------------------------
+    dist_launches = dist_phase(ds, bundle, cfg)
+
     # The launches on the main paths: K1 and K2 in SAGE (phase 9), GCN, GIN
     # and GNN_res (phase 14) and the harness (phase 17); K3 and K4 in the
-    # CBSR route (phase 10) and the harness.
-    main_launches = {n: launches[n] + bench_launches[n]
+    # CBSR route (phase 10) and the harness; all four on 2 ranks (phase 18).
+    main_launches = {n: launches[n] + bench_launches[n] + dist_launches[n]
                      + sum(m["launches"][n] for m in model_steps.values())
                      for n in ("k1", "k2")}
     main_launches.update({n: launches_c[n] + bench_launches[n]
-                          for n in ("k3", "k4")})
+                          + dist_launches[n] for n in ("k3", "k4")})
 
-    def entry(name, source, replaces, n, err, ms, plain, bound, by, lib):
+    def entry(name, source, replaces, n, err, ms, plain, bound, by, lib,
+              dist_n):
         return {"name": name, "route": "cuda",
                 "source": f"maxk_tpu_torch/csrc/{source}",
                 "replaces": f"maxk_tpu/ops/{replaces}", "launches": n,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bound, "bound_by": by, "library_ms": lib}
+                "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                "dist_launches": dist_n}
 
     kernels = [
         entry("maxk_topk", "maxk_topk.cu", "pallas_topk.py:95",
               main_launches["k1"], k1_err, k1_ms, k1_plain, k1_bound, k1_by,
-              k1_lib),
+              k1_lib, dist_launches["k1"]),
         entry("spmm_csr", "spmm_csr.cu", "pallas_spmm.py:73",
               main_launches["k2"], k2_err, k2_ms, k2_plain, k2_bound, k2_by,
-              k2_lib),
+              k2_lib, dist_launches["k2"]),
         entry("cbsr_gather", "cbsr_gather.cu", "pallas_gather.py:46",
               main_launches["k3"], 0.0, k3_ms, k3_plain, k3_bound, k3_by,
-              k3_lib),
+              k3_lib, dist_launches["k3"]),
         entry("cbsr_topk", "cbsr_topk.cu", "pallas_topk.py:102",
               main_launches["k4"], k4_err, k4_ms, k4_plain, k4_bound, k4_by,
-              k4_lib),
+              k4_lib, dist_launches["k4"]),
         entry("maxk_wide", "topk_wide.cu", "pallas_topk.py:95",
               wide_launches["k1_wide"], wide_err["maxk_wide"], k1w["ms"],
-              k1w["plain_ms"], *k1w["bound"], k1w["library_ms"]),
+              k1w["plain_ms"], *k1w["bound"], k1w["library_ms"],
+              dist_launches["k1_wide"]),
         entry("cbsr_topk_wide", "topk_wide.cu", "pallas_topk.py:102",
               wide_launches["k4_wide"], wide_err["cbsr_topk_wide"],
-              k4w["ms"], k4w["plain_ms"], *k4w["bound"], k4w["library_ms"]),
+              k4w["ms"], k4w["plain_ms"], *k4w["bound"], k4w["library_ms"],
+              dist_launches["k4_wide"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

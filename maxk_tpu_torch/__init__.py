@@ -6,8 +6,10 @@ nonlinearity, the CSR SpMM and the CBSR top-k and gather as hand-written
 CUDA kernels (``csrc/``, built with nvcc at first use), the fused MaxK
 SpGEMM on its mask and CBSR routes, SAGE models and the training loop.
 Every op also runs on CPU tensors through its kernel's plain PyTorch
-version. The JAX package ``maxk_tpu`` is the reference; this package
-imports none of it.
+version. ``parallel/`` trains row-partitioned over the ranks of a
+``torch.distributed`` group, with the halo exchange and the CBSR wire.
+The JAX package ``maxk_tpu`` is the reference; this package imports none
+of it.
 """
 
 __version__ = "0.1.0"

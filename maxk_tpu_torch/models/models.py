@@ -23,6 +23,9 @@ xavier-uniform weights and zero biases. MaxK runs on K1 and every
 aggregation on K2 (``ops/maxk.py``, ``ops/spmm.py``).
 
 Graphs are call-time arguments (a ``GraphBundle``), never parameters.
+On a rank of row-partitioned training (``maxk_tpu_torch/parallel/``) the
+bundle holds the rank's row shards, whose ops exchange rows themselves,
+and GNNRes's BatchNorm sums its statistics over the ranks.
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ from torch import nn
 
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR, resolve_device
 from maxk_tpu_torch.ops.maxk import maxk
-from maxk_tpu_torch.ops.spgemm import cbsr_route, maxk_spgemm
+from maxk_tpu_torch.ops.spgemm import maxk_spgemm, uses_cbsr
 from maxk_tpu_torch.ops.spmm import spmm_t
+from maxk_tpu_torch.parallel.mesh import GraphGroup, all_reduce_sum_grad
 
 # Aggregations each model family consumes.
 MODEL_NORMS = {"sage": ("mean",), "sage_fused": ("mean",),
@@ -50,6 +54,8 @@ class GraphBundle:
 
     g_mean/g_sum/g_sym carry mean-, un- and symmetric-normalized edge
     values; *_t are the matching transposes, used by every backward.
+    n_valid: on a row shard, how many of its rows are real nodes (the
+    rest pad the last shard); None: all.
     """
 
     g_mean: Optional[DeviceCSR] = None
@@ -58,6 +64,7 @@ class GraphBundle:
     g_sum_t: Optional[DeviceCSR] = None
     g_sym: Optional[DeviceCSR] = None
     g_sym_t: Optional[DeviceCSR] = None
+    n_valid: Optional[int] = None
 
     @staticmethod
     def from_csr(csr: CSRGraph, norms=("mean", "sum", "sym"),
@@ -75,11 +82,9 @@ class GraphBundle:
             if symmetric and norm in ("sum", "sym"):
                 t = built[f"g_{norm}"]
             elif symmetric and norm == "mean":
-                deg = np.maximum(np.diff(csr.indptr), 1).astype(np.float32)
                 t = dataclasses.replace(
                     built[f"g_{norm}"], values=torch.from_numpy(
-                        (csr.values / deg[csr.indices]).astype(np.float32)
-                    ).to(device))
+                        mean_transpose_values(csr)).to(device))
             else:
                 t = DeviceCSR.from_csr(base.transpose(), device)
             built[f"g_{norm}_t"] = t
@@ -92,6 +97,13 @@ class GraphBundle:
         return GraphBundle.from_csr(
             csr, norms=MODEL_NORMS.get(model_name, ("mean", "sum", "sym")),
             symmetric=symmetric, device=device)
+
+
+def mean_transpose_values(csr: CSRGraph) -> np.ndarray:
+    """Edge values of (D^-1 A)^T = A D^-1 for a symmetric A, in A's
+    structure: each edge's value over its column's degree."""
+    deg = np.maximum(np.diff(csr.indptr), 1).astype(np.float32)
+    return (csr.values / deg[csr.indices]).astype(np.float32)
 
 
 def _linear(n_in: int, n_out: int, bias: bool,
@@ -128,22 +140,42 @@ class BatchNorm(nn.Module):
     ``BatchNorm1d`` would update the running variance with the unbiased
     batch variance and weigh the new value by its momentum, so it is not
     used. Running mean starts at 0 and running variance at 1.
+
+    With a ``group`` (the JAX package's ``bn_axis``) the batch is every
+    rank's rows: training all-reduces sum(x), sum(x^2) and the row count
+    (the first ``n_valid`` rows of each rank: padded rows do not count,
+    where the JAX package lets them in), and the gradient flows back
+    through the sum.
     """
 
     momentum = 0.99
     eps = 1e-5
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, group: Optional[GraphGroup] = None):
         super().__init__()
+        self.group = group
         self.weight = nn.Parameter(torch.ones(n))
         self.bias = nn.Parameter(torch.zeros(n))
         self.register_buffer("running_mean", torch.zeros(n))
         self.register_buffer("running_var", torch.ones(n))
 
-    def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+    def _moments(self, x: torch.Tensor, n_valid: Optional[int]):
+        """E[x] and E[x^2] over the batch."""
+        if self.group is None:
+            return x.mean(dim=0), (x * x).mean(dim=0)
+        xv = x[:n_valid]
+        n = torch.full((1,), float(xv.shape[0]), dtype=x.dtype,
+                       device=x.device)
+        sums = all_reduce_sum_grad(
+            torch.cat([xv.sum(dim=0), (xv * xv).sum(dim=0), n]), self.group)
+        d = x.shape[1]
+        return sums[:d] / sums[-1], sums[d:2 * d] / sums[-1]
+
+    def forward(self, x: torch.Tensor, training: bool,
+                n_valid: Optional[int] = None) -> torch.Tensor:
         if training:
-            mean = x.mean(dim=0)
-            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            mean, mean2 = self._moments(x, n_valid)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean
@@ -212,12 +244,13 @@ class SAGE(_GNN):
         """(x for fc_self, x_agg for fc_neigh)."""
         if self.nonlinear == "maxk":
             # The JAX model runs maxk_spgemm(x) and maxk(x) side by side,
-            # both on the pre-MaxK x. On the CBSR route so does this one.
+            # both on the pre-MaxK x. On the CBSR route (and on a row
+            # shard, where CBSR is the wire) so does this one.
             # On the mask route both apply the same mask to the same x
             # (forward x * mask, backward g * mask), so one MaxK feeding
             # both branches computes the same values and gradients with
             # one K1 launch.
-            if cbsr_route():
+            if uses_cbsr(graphs.g_mean):
                 return (maxk(x, self.maxk),
                         maxk_spgemm(graphs.g_mean, graphs.g_mean_t, x,
                                     self.maxk, self.compute_dtype))
@@ -314,13 +347,15 @@ class GIN(GCN):
 class GNNRes(_GNN):
     """Residual GCN blocks: x_res = res_i(x); GraphConv (sym) + bias ->
     BatchNorm? -> lin1_i -> ReLU -> dropout -> lin2_i -> MaxK/ReLU;
-    x = relu(x_res + x) -> dropout."""
+    x = relu(x_res + x) -> dropout. With a ``group`` the BatchNorm
+    statistics are the ranks' together."""
 
     def __init__(self, in_size: int, hid_size: int, num_hid_layers: int,
                  out_size: int, maxk: int = 32, feat_drop: float = 0.5,
                  norm: bool = False, nonlinear: str = "maxk",
                  compute_dtype: str = "bfloat16",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 group: Optional[GraphGroup] = None):
         super().__init__(num_hid_layers, maxk, feat_drop, norm, nonlinear,
                          compute_dtype)
         gen = generator if generator is not None else torch.Generator()
@@ -331,7 +366,7 @@ class GNNRes(_GNN):
             self.register_parameter(f"gconv_bias_{i}",
                                     nn.Parameter(torch.zeros(hid_size)))
             if norm:
-                self.add_module(f"norm_{i}", BatchNorm(hid_size))
+                self.add_module(f"norm_{i}", BatchNorm(hid_size, group))
             self.add_module(f"lin1_{i}",
                             _linear(hid_size, hid_size, True, gen))
             self.add_module(f"lin2_{i}",
@@ -347,7 +382,7 @@ class GNNRes(_GNN):
             x = (spmm_t(graphs.g_sym, graphs.g_sym_t, x, self.compute_dtype)
                  + getattr(self, f"gconv_bias_{i}"))
             if self.norm:
-                x = getattr(self, f"norm_{i}")(x, training)
+                x = getattr(self, f"norm_{i}")(x, training, graphs.n_valid)
             x = torch.relu(getattr(self, f"lin1_{i}")(x))
             x = dropout(x, self.feat_drop, training, generator)
             x = self._nonlinear(getattr(self, f"lin2_{i}")(x))
@@ -364,13 +399,17 @@ def build_model(name: str, in_size: int, hid_size: int, num_hid_layers: int,
                 out_size: int, maxk: int = 32, feat_drop: float = 0.5,
                 norm: bool = False, nonlinear: str = "maxk",
                 compute_dtype: str = "bfloat16",
-                generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Model switch of the training driver."""
+                generator: Optional[torch.Generator] = None,
+                group: Optional[GraphGroup] = None) -> nn.Module:
+    """Model switch of the trainers. ``group``: the ranks of
+    row-partitioned training, whose BatchNorm statistics GNNRes with
+    norm sums (the JAX package's ``bn_axis``)."""
     try:
         cls = _MODELS[name]
     except KeyError:
         raise ValueError(
             f"unknown model {name!r}; choose from {sorted(_MODELS)}") from None
+    kwargs = {"group": group} if cls is GNNRes else {}
     return cls(in_size, hid_size, num_hid_layers, out_size, maxk=maxk,
                feat_drop=feat_drop, norm=norm, nonlinear=nonlinear,
-               compute_dtype=compute_dtype, generator=generator)
+               compute_dtype=compute_dtype, generator=generator, **kwargs)

@@ -1,7 +1,8 @@
 """K2: CSR SpMM, as a CUDA kernel and its plain PyTorch version.
 
 ``spmm_csr(g, x)`` returns the float32 ``(V, D)`` product ``A @ x`` of a
-``DeviceCSR`` and a float32 or bfloat16 ``x``, accumulated in float32
+``DeviceCSR`` of V rows and a float32 or bfloat16 ``x`` of ``g.n_cols``
+rows (V for a square graph), accumulated in float32
 with the edge values in float32. It replaces the TPU kernel
 ``maxk_tpu/ops/pallas_spmm.py::_tile_reduce_kernel``.
 
@@ -90,9 +91,9 @@ def _check(g: DeviceCSR, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"spmm: need a 2-D float32 or bfloat16 x, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.shape[0] != g.n_nodes:
+    if x.shape[0] != g.n_cols:
         raise ValueError(f"spmm: x has {x.shape[0]} rows, graph has "
-                         f"{g.n_nodes} nodes")
+                         f"{g.n_cols} columns")
     if (g.indptr.dtype != torch.int64 or g.indices.dtype != torch.int32
             or g.values.dtype != torch.float32):
         raise ValueError("spmm: need int64 indptr, int32 indices, float32 "
@@ -116,7 +117,7 @@ def spmm_csr(g: DeviceCSR, x: torch.Tensor) -> torch.Tensor:
                     ("indices", g.indices), ("values", g.values)):
         if not t.is_contiguous():
             raise ValueError(f"spmm kernel: {name} must be contiguous")
-    v, d = x.shape
+    v, d = g.n_nodes, x.shape[1]
     out = torch.empty((v, d), dtype=torch.float32, device=x.device)
     if v == 0 or d == 0:
         return out

@@ -215,24 +215,40 @@ class SegmentPlan:
 class DeviceCSR:
     """CSR adjacency on a torch device, as the SpMM kernel reads it, with
     its segment plan. ``from_csr`` builds the plan; a DeviceCSR made
-    without one is refused by the SpMM."""
+    without one is refused by the SpMM.
+
+    A row shard of a graph (``maxk_tpu_torch/parallel/partition.py``) is
+    rectangular: ``n_nodes`` rows, and columns that index a table of
+    ``n_cols`` rows which ``exchange`` builds from this rank's rows
+    (``exchange.table(x)``: the halo exchange's ``[local | received]``
+    rows, or the all-gather's global rows). Without an exchange the
+    graph is square unless ``n_cols`` says otherwise.
+    """
 
     indptr: torch.Tensor     # (V+1,) int64
     indices: torch.Tensor    # (E,)   int32
     values: torch.Tensor     # (E,)   float32
     n_nodes: int
     plan: Optional[SegmentPlan] = None
+    n_cols: Optional[int] = None      # rows of the gathered operand
+    exchange: Optional[object] = None  # parallel.halo.HaloSpec/GatherSpec
+
+    def __post_init__(self):
+        if self.n_cols is None:
+            object.__setattr__(self, "n_cols", self.n_nodes)
 
     @staticmethod
-    def from_csr(csr: CSRGraph, device=None,
-                 seg_len: int = SEG_LEN) -> "DeviceCSR":
+    def from_csr(csr: CSRGraph, device=None, seg_len: int = SEG_LEN,
+                 n_cols: Optional[int] = None,
+                 exchange=None) -> "DeviceCSR":
         device = resolve_device(device)
         return DeviceCSR(
             indptr=torch.from_numpy(csr.indptr).to(device),
             indices=torch.from_numpy(csr.indices).to(device),
             values=torch.from_numpy(csr.values).to(device),
             n_nodes=csr.n_nodes,
-            plan=SegmentPlan.build(csr, seg_len, device))
+            plan=SegmentPlan.build(csr, seg_len, device),
+            n_cols=n_cols, exchange=exchange)
 
     @property
     def n_edges(self) -> int:

@@ -13,6 +13,21 @@ backward: g      = sspmm_sampled(A^T, dy, s)
                  = (A^T @ dy)[i, s[i, l]]  # K2, then K3 (ops/cbsr.py)
           dx     = expand(g, s)
 
+Halo route (any row shard, ``DeviceCSR.exchange`` set: CBSR is the wire
+format there, whatever MAXK_FUSED_MASK says, as in the JAX package's
+``_mask_path``):
+forward:  (v, s) = cbsr_topk(x_local, k)           # K4, local rows
+          table  = exchange(wire(v, s))            # one all_to_all
+          y      = A_shard @ expand(unwire(table)) # K2 on the table
+backward: the CBSR route's, on the sharded transpose: its spmm
+          exchanges dy (dense, in the compute dtype) before K2, then K3
+
+The wire is bfloat16 values and uint8 selectors, 3k bytes a row, under
+bfloat16 compute at D <= 256 (the bytes of the JAX package's bf16-pair
+and uint8-quad packing); else float32 values and int32 selectors. Both
+round to what K2 reads anyway, so a shard's rows are bit-equal to the
+single-device CBSR route's.
+
 The two are the same function: expand(cbsr_topk(x)) == MaxK(x) and
 expand(gather(dS, s), s) == mask * dS. Under bfloat16 compute the CBSR
 backward hands dS to the sampler in bfloat16, as the JAX package does,
@@ -33,7 +48,12 @@ import torch
 from maxk_tpu_torch.ops.cbsr import cbsr_expand, cbsr_gather, cbsr_topk
 from maxk_tpu_torch.ops.cuda_topk import maxk_forward
 from maxk_tpu_torch.ops.graph import DeviceCSR
-from maxk_tpu_torch.ops.spmm import DTypeLike, resolve_compute_dtype, spmm
+from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
+from maxk_tpu_torch.ops.spmm import (DTypeLike, gather_table,
+                                     resolve_compute_dtype, spmm)
+
+# The packed wire's widest row: its selectors are uint8.
+WIRE_MAX_D = 256
 
 
 def cbsr_route() -> bool:
@@ -41,11 +61,50 @@ def cbsr_route() -> bool:
     return os.environ.get("MAXK_FUSED_MASK") == "0"
 
 
+def uses_cbsr(g: DeviceCSR) -> bool:
+    """True where maxk_spgemm runs on CBSR: under MAXK_FUSED_MASK=0, and
+    on every row shard, where CBSR is the wire format."""
+    return cbsr_route() or g.exchange is not None
+
+
+def _wire_dtypes(dim: int, cd: torch.dtype):
+    """(values, selector) dtypes on the wire: bf16 and uint8 (3k bytes a
+    row) under bf16 compute at dim <= 256, else float32 and int32."""
+    if cd == torch.bfloat16 and dim <= WIRE_MAX_D:
+        return torch.bfloat16, torch.uint8
+    return torch.float32, torch.int32
+
+
+def cbsr_wire(values: torch.Tensor, selector: torch.Tensor, dim: int,
+              cd: torch.dtype) -> torch.Tensor:
+    """CBSR rows as one (V, bytes) uint8 wire, values then selectors."""
+    vt, st = _wire_dtypes(dim, cd)
+    return torch.cat([values.to(vt).contiguous().view(torch.uint8),
+                      selector.to(st).contiguous().view(torch.uint8)], 1)
+
+
+def cbsr_unwire(wire: torch.Tensor, k: int, dim: int,
+                cd: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, selector) of cbsr_wire's rows."""
+    vt, st = _wire_dtypes(dim, cd)
+    vb = k * vt.itemsize
+    return (wire[:, :vb].contiguous().view(vt),
+            wire[:, vb:].contiguous().view(st))
+
+
 def spgemm_forward_cbsr(g: DeviceCSR, values: torch.Tensor,
                         selector: torch.Tensor, dim: int,
                         compute_dtype: DTypeLike = None) -> torch.Tensor:
-    """A @ expand(values, selector): node-level expansion, then K2."""
-    return spmm(g, cbsr_expand(values, selector, dim), compute_dtype)
+    """A @ expand(values, selector): node-level expansion, then K2. On a
+    row shard the CBSR rows cross the wire first and the whole table is
+    expanded."""
+    if g.exchange is None:
+        return spmm(g, cbsr_expand(values, selector, dim), compute_dtype)
+    cd = resolve_compute_dtype(compute_dtype, values.dtype)
+    table = gather_table(g, cbsr_wire(values, selector, dim, cd))
+    v, s = cbsr_unwire(table, values.shape[1], dim, cd)
+    x = cbsr_expand(v, s, dim).to(cd).contiguous()
+    return spmm_csr(g, x).to(values.dtype)
 
 
 def sspmm_sampled(g_t: DeviceCSR, dy: torch.Tensor, selector: torch.Tensor,
@@ -95,12 +154,12 @@ class _MaxKSpgemmCBSR(torch.autograd.Function):
 def maxk_spgemm(g: DeviceCSR, g_t: DeviceCSR, x: torch.Tensor, k: int,
                 compute_dtype: DTypeLike = None) -> torch.Tensor:
     """Fused y = A @ MaxK_k(x), on the CBSR route under MAXK_FUSED_MASK=0
-    and on the mask route otherwise.
+    or on a row shard, and on the mask route otherwise.
 
     g: adjacency (values encode the aggregation normalization); g_t: its
     transpose (g itself for a symmetric matrix); x: (V, D) float32;
     1 <= k <= D.
     """
     cd = resolve_compute_dtype(compute_dtype, x.dtype)
-    fn = _MaxKSpgemmCBSR if cbsr_route() else _MaxKSpgemm
+    fn = _MaxKSpgemmCBSR if uses_cbsr(g) else _MaxKSpgemm
     return fn.apply(x, g, g_t, k, cd)

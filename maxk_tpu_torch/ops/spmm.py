@@ -10,6 +10,12 @@
   to x's dtype.
 - ``spmm_t``: ``spmm`` whose backward is K2 on the stored transpose,
   ``dx = A^T @ dy``, never autodiff through the gather.
+
+On a row shard (a ``DeviceCSR`` with an ``exchange``,
+``maxk_tpu_torch/parallel/``) ``spmm`` first exchanges x in the compute
+dtype (the halo rows, or the all-gather) and runs K2 on the table, as
+the JAX package's ``_spmm_halo`` does. ``spmm_t`` needs nothing more:
+its backward is ``spmm`` on the sharded transpose, which exchanges dy.
 """
 
 from __future__ import annotations
@@ -71,11 +77,17 @@ def resolve_compute_dtype(compute_dtype: DTypeLike,
     return compute_dtype
 
 
+def gather_table(g: DeviceCSR, x: torch.Tensor) -> torch.Tensor:
+    """The rows g's columns index: x itself, or on a row shard the table
+    its exchange builds from this rank's rows."""
+    return x if g.exchange is None else g.exchange.table(x)
+
+
 def spmm(g: DeviceCSR, x: torch.Tensor,
          compute_dtype: DTypeLike = None) -> torch.Tensor:
     """out[r] = sum_{e in row r} vals[e] * x[cols[e]], in x's dtype."""
     cd = resolve_compute_dtype(compute_dtype, x.dtype)
-    return spmm_csr(g, x.to(cd).contiguous()).to(x.dtype)
+    return spmm_csr(g, gather_table(g, x.to(cd).contiguous())).to(x.dtype)
 
 
 class _SpmmPair(torch.autograd.Function):

@@ -1,9 +1,14 @@
 """Training configuration: the JAX package's flag set (reference
 utils/config.py names) plus ``--device``.
 
-Flags of paths not ported yet are accepted and refused when set:
-``--n_devices`` / ``--model_parallel`` > 1 and the multi-host flags wait
-for ROADMAP slice 5 (multi-device training).
+``--n_devices N`` > 1 trains row-partitioned over N ranks
+(``maxk_tpu_torch/parallel/``): one process spawns
+``--local_device_count`` of them (default N), and with ``--distributed``
+``--num_processes`` such processes meet at ``--coordinator``, process
+``--process_id`` holding ranks ``process_id * local_device_count`` on.
+``--no_halo`` all-gathers the operand instead of the halo exchange.
+``--model_parallel`` > 1 (tensor-parallel Dense layers) is not ported
+yet and is refused (ROADMAP.md, queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -73,26 +78,32 @@ class TrainConfig(argparse.ArgumentParser):
         self.add_argument("--device", type=str, default="cuda",
                           help="torch device to train on (cuda, cuda:N, "
                                "cpu)")
-        # Multi-device flags of the JAX package; only the single-device
-        # values are accepted until ROADMAP slice 5.
+        # Row-partitioned training over several ranks.
         self.add_argument("--n_devices", type=int, default=0,
-                          help="Devices in the graph mesh (0/1 only)")
+                          help="Ranks of the graph axis, the job's world "
+                               "size (0/1: one device, no process group)")
         self.add_argument("--model_parallel", type=int, default=1,
-                          help="Tensor-parallel size (1 only)")
+                          help="Tensor-parallel size (1 only; not ported)")
         self.add_argument("--distributed", action="store_true",
-                          default=False, help="Multi-host (not ported)")
+                          default=False,
+                          help="Several processes, which meet at "
+                               "--coordinator")
         self.add_argument("--coordinator", type=str, default=None,
-                          help="host:port of process 0 (not ported)")
+                          help="host:port where the processes meet "
+                               "(--distributed)")
         self.add_argument("--num_processes", type=int, default=None,
-                          help="total processes in the job (not ported)")
+                          help="Processes in the job (--distributed; "
+                               "default 1)")
         self.add_argument("--process_id", type=int, default=None,
-                          help="this process's rank (not ported)")
+                          help="This process's index, 0 .. "
+                               "num_processes-1 (--distributed)")
         self.add_argument("--local_device_count", type=int, default=None,
-                          help="virtual devices per process (not ported)")
+                          help="Ranks this process spawns (default "
+                               "n_devices / num_processes)")
         self.add_argument("--no_halo", dest="halo", action="store_false",
                           default=True,
-                          help="Disable the halo exchange (multi-device "
-                               "only; no effect here)")
+                          help="All-gather every rank's rows for each "
+                               "aggregation instead of the halo exchange")
         self.add_argument("--compute_dtype", type=str, default="bfloat16",
                           choices=["bfloat16", "float32"],
                           help="SpMM input dtype for x (accumulation "
@@ -114,25 +125,49 @@ class TrainConfig(argparse.ArgumentParser):
                 f"{config.hidden_dim}: MaxK keeps k of the hidden "
                 f"channels, so k must be <= hidden_dim (the reference's "
                 f"torch.topk would fail the same way at the first layer)")
-        unported = [
-            flag for flag, on in (
-                ("--n_devices > 1", config.n_devices > 1),
-                ("--model_parallel > 1", config.model_parallel > 1),
-                ("--distributed", config.distributed),
-                ("--num_processes > 1", (config.num_processes or 0) > 1),
-                ("--coordinator", config.coordinator is not None),
-                ("--process_id", config.process_id is not None),
-                ("--local_device_count",
-                 config.local_device_count is not None)) if on]
-        if unported:
-            self.error(f"{', '.join(unported)}: not ported yet "
-                       f"(ROADMAP.md: multi-device is slice 5)")
+        if config.model_parallel > 1:
+            self.error("--model_parallel > 1: tensor-parallel Dense layers "
+                       "are not ported yet (ROADMAP.md, queue 1, item 6)")
+        self._check_layout(config)
         if config.path is None:
             ts = time.strftime("%Y%m%d_%H%M%S")
             config.path = (f"experiments/{config.dataset}_{config.model}"
                            f"_maxk{config.maxk}_{ts}")
         Path(config.path).mkdir(parents=True, exist_ok=True)
         return config
+
+    def _check_layout(self, config) -> None:
+        """Fill in and check the split of --n_devices ranks over
+        processes."""
+        if config.distributed:
+            missing = [f for f, v in (
+                ("--coordinator", config.coordinator),
+                ("--num_processes", config.num_processes),
+                ("--process_id", config.process_id)) if v is None]
+            if missing or config.n_devices < 2:
+                self.error(f"--distributed needs --n_devices > 1"
+                           f"{' and ' + ', '.join(missing) if missing else ''}")
+        else:
+            stray = [f for f, on in (
+                ("--coordinator", config.coordinator is not None),
+                ("--num_processes > 1", (config.num_processes or 1) > 1),
+                ("--process_id > 0", (config.process_id or 0) > 0)) if on]
+            if stray:
+                self.error(f"{', '.join(stray)}: only with --distributed")
+        config.num_processes = config.num_processes or 1
+        config.process_id = config.process_id or 0
+        if not 0 <= config.process_id < config.num_processes:
+            self.error(f"--process_id {config.process_id} is not in "
+                       f"0..{config.num_processes - 1}")
+        if config.local_device_count is None:
+            config.local_device_count = max(
+                1, config.n_devices // config.num_processes)
+        if config.n_devices > 1 and (config.local_device_count
+                                     * config.num_processes
+                                     != config.n_devices):
+            self.error(f"--n_devices {config.n_devices} is not "
+                       f"--num_processes {config.num_processes} x "
+                       f"--local_device_count {config.local_device_count}")
 
     @staticmethod
     def save_config(config, filename: str = "config.json"):

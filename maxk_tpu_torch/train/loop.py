@@ -44,27 +44,84 @@ class TrainResults:
     early_stopped: bool = False
 
 
-def masked_loss(logits: torch.Tensor, labels: torch.Tensor,
-                mask: torch.Tensor, multilabel: bool) -> torch.Tensor:
-    """CE over masked nodes (single-label) or BCE-with-logits averaged
-    over targets (multilabel), divided by max(sum(mask), 1)."""
+def masked_loss_terms(logits: torch.Tensor, labels: torch.Tensor,
+                      mask: torch.Tensor, multilabel: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked nodes' losses, their count): CE (single-label)
+    or BCE-with-logits averaged over targets (multilabel)."""
     if multilabel:
         per = F.binary_cross_entropy_with_logits(
             logits, labels, reduction="none").mean(dim=-1)
     else:
         per = F.cross_entropy(logits, labels, reduction="none")
     m = mask.to(per.dtype)
-    return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (per * m).sum(), m.sum()
+
+
+def masked_loss(logits: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor, multilabel: bool) -> torch.Tensor:
+    """The masked nodes' mean loss: their sum over max(count, 1)."""
+    num, den = masked_loss_terms(logits, labels, mask, multilabel)
+    return num / torch.clamp(den, min=1.0)
+
+
+def model_from_config(config, dataset: Dataset, group=None):
+    """The model a config names, its parameters drawn from config.seed
+    (the same on every rank), on the CPU."""
+    return build_model(
+        config.model, dataset.in_size, config.hidden_dim,
+        config.hidden_layers, dataset.num_classes, maxk=config.maxk,
+        feat_drop=config.dropout, norm=config.norm,
+        nonlinear=config.nonlinear,
+        compute_dtype=getattr(config, "compute_dtype", "bfloat16"),
+        generator=torch.Generator().manual_seed(config.seed), group=group)
 
 
 class FitLoop:
     """The training driver: epochs, evaluation, best-val and patience,
     checkpoints and resume, timing, final_results.json.
 
-    Implementors provide: config, logger, writer, device, epoch,
-    train_step(), evaluate_masks(), aggregation_probe(step_s),
-    state_blob(extra), load_blob(blob).
+    Implementors provide: config, dataset, logger, writer, device,
+    graphs, epoch, train_step(), eval_logits() (every node's logits),
+    state_blob(extra), load_blob(blob). A job of several ranks runs the
+    loop on each; only the rank whose ``is_writer`` is set writes files.
     """
+
+    is_writer = True
+
+    def save_checkpoint(self, ckpt: CheckpointManager, step: int,
+                        extra: dict) -> None:
+        ckpt.save(step, self.state_blob(extra))
+
+    @torch.no_grad()
+    def aggregation_probe(self, step_s: float) -> None:
+        """Log the aggregation's share of a train step: L forward
+        aggregations on the model's graph at (V, hidden_dim), as the JAX
+        package's probe reports it (on a rank, its rows and exchange)."""
+        g = self.graphs.g_mean or self.graphs.g_sym or self.graphs.g_sum
+        h = torch.ones(g.n_nodes, self.config.hidden_dim, device=self.device)
+        cd = getattr(self.config, "compute_dtype", "bfloat16")
+        spmm(g, h, cd)                                 # warm-up
+
+        def layers():
+            for _ in range(self.config.hidden_layers):
+                spmm(g, h, cd)
+
+        _, agg_s = self._timed(layers)
+        if self.logger:
+            self.logger.info(
+                f"Aggregation time: {agg_s*1e3:.1f} ms of "
+                f"{step_s*1e3:.1f} ms step "
+                f"({100.0*agg_s/max(step_s, 1e-9):.1f}% — forward only; "
+                f"backward aggregation roughly doubles it)")
+
+    def evaluate_masks(self):
+        """(train, val, test) metric triple."""
+        logits = self.eval_logits().float().cpu().numpy()
+        ds = self.dataset
+        return tuple(
+            metrics_lib.evaluate_logits(logits, ds.labels, m, ds.metric)
+            for m in (ds.train_mask, ds.val_mask, ds.test_mask))
 
     def _timed(self, fn):
         """(fn(), seconds): CUDA events on a CUDA device, else the host
@@ -132,7 +189,7 @@ class FitLoop:
         t_start = time.time()
         # --profile: the post-warm-up epochs, as the JAX package traces.
         profile_epochs = None
-        if getattr(cfg, "profile", False):
+        if getattr(cfg, "profile", False) and self.is_writer:
             profile_epochs = (start_epoch + 1,
                               min(start_epoch + 4, cfg.epochs))
         prof = None
@@ -187,9 +244,9 @@ class FitLoop:
 
             if ckpt and getattr(cfg, "save_every", 0) \
                     and ((epoch + 1) % cfg.save_every == 0 or early_stopped):
-                ckpt.save(epoch + 1, self.state_blob(dict(
+                self.save_checkpoint(ckpt, epoch + 1, dict(
                     best_val=best["val"], best_test=best["test"],
-                    best_epoch=best["epoch"], bad_evals=bad_evals)))
+                    best_epoch=best["epoch"], bad_evals=bad_evals))
             if early_stopped:
                 break
 
@@ -214,7 +271,7 @@ class FitLoop:
     def _save_final_results(self, results: TrainResults) -> None:
         """Final {config, results, history} artifact, as JSON."""
         path = getattr(self.config, "path", None)
-        if not path:
+        if not path or not self.is_writer:
             return
         blob = dict(config={k: str(v) for k, v in
                             sorted(vars(self.config).items())},
@@ -247,14 +304,7 @@ class Trainer(FitLoop):
                                   symmetric=getattr(dataset, "symmetric",
                                                     False),
                                   device=self.device)
-        self.model = build_model(
-            config.model, dataset.in_size, config.hidden_dim,
-            config.hidden_layers, dataset.num_classes, maxk=config.maxk,
-            feat_drop=config.dropout, norm=config.norm,
-            nonlinear=config.nonlinear,
-            compute_dtype=getattr(config, "compute_dtype", "bfloat16"),
-            generator=torch.Generator().manual_seed(config.seed),
-        ).to(self.device)
+        self.model = model_from_config(config, dataset).to(self.device)
         self.optimizer = make_optimizer(
             self.model.parameters(), config.w_lr, config.w_weight_decay,
             enable_lookahead=getattr(config, "enable_lookahead", False))
@@ -285,39 +335,9 @@ class Trainer(FitLoop):
         return loss.detach()
 
     @torch.no_grad()
-    def aggregation_probe(self, step_s: float) -> None:
-        """Log the aggregation's share of a train step: L forward
-        aggregations on the model's graph at (V, hidden_dim), as the JAX
-        package's probe reports it."""
-        g = self.graphs.g_mean or self.graphs.g_sym or self.graphs.g_sum
-        h = torch.ones(g.n_nodes, self.config.hidden_dim, device=self.device)
-        cd = getattr(self.config, "compute_dtype", "bfloat16")
-        spmm(g, h, cd)                                 # warm-up
-
-        def layers():
-            for _ in range(self.config.hidden_layers):
-                spmm(g, h, cd)
-
-        _, agg_s = self._timed(layers)
-        if self.logger:
-            self.logger.info(
-                f"Aggregation time: {agg_s*1e3:.1f} ms of "
-                f"{step_s*1e3:.1f} ms step "
-                f"({100.0*agg_s/max(step_s, 1e-9):.1f}% — forward only; "
-                f"backward aggregation roughly doubles it)")
-
-    @torch.no_grad()
     def eval_logits(self) -> torch.Tensor:
         self.model.eval()
         return self.model(self.graphs, self.features, training=False)
-
-    def evaluate_masks(self):
-        """(train, val, test) metric triple."""
-        logits = self.eval_logits().float().cpu().numpy()
-        ds = self.dataset
-        return tuple(
-            metrics_lib.evaluate_logits(logits, ds.labels, m, ds.metric)
-            for m in (ds.train_mask, ds.val_mask, ds.test_mask))
 
     # -- checkpoints -------------------------------------------------------------
 

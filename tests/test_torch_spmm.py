@@ -260,3 +260,30 @@ def test_split_rows_sum_partials_in_segment_order():
         expect += part
     assert torch.equal(out[0], expect)
     assert torch.equal(out[1], torch.zeros(2))
+
+
+@pytest.mark.parametrize("seg_len", [SEG_LEN, 2])
+def test_rectangular_graph_matches_dense_oracle(seg_len):
+    """A row shard's graph: 60 rows whose columns index a 150-row table
+    (n_cols > n_nodes), some rows empty. K2's plain version gives
+    (60, D) rows equal to the dense oracle's, and an x of the wrong
+    row count is refused."""
+    rng = np.random.default_rng(11)
+    src = rng.integers(0, 60, 700)
+    src = src[src % 7 != 0]
+    dst = rng.integers(0, 150, src.shape[0]).astype(np.int32)
+    vals = rng.uniform(size=src.shape[0]).astype(np.float32)
+    csr = CSRGraph.from_coo(src, dst, 60, vals)
+    g = DeviceCSR.from_csr(csr, "cpu", seg_len=seg_len, n_cols=150)
+    assert (g.n_nodes, g.n_cols) == (60, 150)
+    x = rng.normal(size=(150, 24)).astype(np.float32)
+    dense = np.zeros((60, 150))
+    np.add.at(dense, (src[np.argsort(src, kind="stable")],
+                      csr.indices), csr.values.astype(np.float64))
+    out = spmm_csr(g, torch.from_numpy(x))
+    assert out.shape == (60, 24)
+    np.testing.assert_allclose(out.numpy(), dense @ x, rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(spmm(g, torch.from_numpy(x), "float32"), out)
+    with pytest.raises(ValueError, match="150 columns"):
+        spmm_csr(g, torch.zeros(60, 24))

@@ -280,12 +280,16 @@ def test_profile_written_on_early_stop(tmp_path):
     assert len(_traces(tmp_path)) == 1
 
 
-@pytest.mark.parametrize("flag", [["--n_devices", "2"],
-                                  ["--model_parallel", "2"],
-                                  ["--num_processes", "2"]])
-def test_cli_refuses_unported_flags(tmp_path, flag):
+@pytest.mark.parametrize("flag,says", [
+    (["--model_parallel", "2"], "ROADMAP"),
+    (["--num_processes", "2"], "only with --distributed"),
+    (["--n_devices", "2", "--local_device_count", "3"], "is not")])
+def test_cli_refuses_unported_flags(tmp_path, capsys, flag, says):
+    """--model_parallel > 1 is not ported; a split of ranks over
+    processes that does not add up is refused."""
     with pytest.raises(SystemExit):
         TrainConfig().parse_args(["--path", str(tmp_path), *flag])
+    assert says in capsys.readouterr().err
 
 
 def test_trainer_without_device_or_cuda_raises(monkeypatch, tmp_path):

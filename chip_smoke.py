@@ -96,6 +96,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  BatchNorm sums over the ranks); one exchange alone (dense
                  bf16 rows, the CBSR wire); the CLI's --n_devices 2 as a
                  subprocess
+ 19 cbsr_gather  the CBSR-operand forward (CBSR_GATHER_MODE, K5): K5
+                 bit-equal (torch.equal) to its plain version and to K2 on
+                 the expanded operand, two calls bit-identical, on phase
+                 5's small and split-boundary graphs at k = 1, 7, 16, 32,
+                 64, 128 (k <= D), D = 64, 200, 256, bf16 and f32; at the
+                 cell (phase 9's graph) for k = 16, 32, 64: K5's time vs
+                 K2 on the expanded bf16 operand, the expansion chain and
+                 torch.sparse.mm, its byte bound, the L2-gather model and
+                 the shared-memory wavefronts its selectors cost; SAGE at
+                 phase 9's cell under the flag (K1 = K2 = K3 = K4 = K5 = 4
+                 a step, first loss equal to phase 10's); benchmark_graph
+                 on syn_small_d64 under the flag, validated
 Each new phase prints its seconds. The kernels line comes last but two.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing any result.
@@ -152,6 +164,7 @@ OP_GROUPS = (
     ("K2", ("spmm_segment_kernel", "spmm_finish_kernel")),
     ("K3", ("cbsr_gather_kernel",)),
     ("K4", ("cbsr_topk_kernel",)),
+    ("K5", ("spgemm_cbsr_kernel", "spgemm_cbsr_finish_kernel")),
     ("wide", ("topk_wide_kernel",)),
     ("GEMM", ("gemm", "gemv", "nvjet", "splitKreduce", "cutlass")),
     ("LayerNorm", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -849,9 +862,9 @@ def harness_phase(cell_csr, counted: dict, k4_ms: float) -> dict:
 
 
 # What one rank of phase 18 launches a step, by kernel id.
-DIST_SAGE_STEP = {"k1": 4, "k2": 8, "k3": 4, "k4": 4, "k1_wide": 0,
+DIST_SAGE_STEP = {"k1": 4, "k2": 8, "k3": 4, "k4": 4, "k5": 0, "k1_wide": 0,
                   "k4_wide": 0}
-DIST_GCN_STEP = {"k1": 4, "k2": 8, "k3": 0, "k4": 0, "k1_wide": 0,
+DIST_GCN_STEP = {"k1": 4, "k2": 8, "k3": 0, "k4": 0, "k5": 0, "k1_wide": 0,
                  "k4_wide": 0}
 # The families phase 18 runs on 2 ranks: SAGE, and those of the dense
 # exchange (GCN; GNN_res, whose BatchNorm sums over the ranks).
@@ -862,13 +875,14 @@ DIST_RUNS = (("sage", 5, DIST_SAGE_STEP), ("gcn", 2, DIST_GCN_STEP),
 def kernel_counters() -> dict:
     """Every kernel wrapper, by kernel id; each counts its launches."""
     from maxk_tpu_torch.ops.cuda_gather import cbsr_gather_forward
+    from maxk_tpu_torch.ops.cuda_spgemm_cbsr import spgemm_cbsr_csr
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
     from maxk_tpu_torch.ops.cuda_topk import (cbsr_topk_forward,
                                               cbsr_topk_forward_wide,
                                               maxk_forward, maxk_forward_wide)
     return {"k1": maxk_forward, "k2": spmm_csr, "k3": cbsr_gather_forward,
-            "k4": cbsr_topk_forward, "k1_wide": maxk_forward_wide,
-            "k4_wide": cbsr_topk_forward_wide}
+            "k4": cbsr_topk_forward, "k5": spgemm_cbsr_csr,
+            "k1_wide": maxk_forward_wide, "k4_wide": cbsr_topk_forward_wide}
 
 
 def dist_rank(group, job: dict) -> dict:
@@ -1109,6 +1123,203 @@ def dist_phase(ds, bundle, cfg) -> dict:
                    for model, _, _ in DIST_RUNS) for n in DIST_SAGE_STEP}
 
 
+@contextlib.contextmanager
+def gather_mode():
+    """maxk_tpu_torch.ops.spgemm.CBSR_GATHER_MODE = True inside, as a user
+    sets it; the previous value restored after."""
+    from maxk_tpu_torch.ops import spgemm
+    prev = spgemm.CBSR_GATHER_MODE
+    spgemm.CBSR_GATHER_MODE = True
+    try:
+        yield
+    finally:
+        spgemm.CBSR_GATHER_MODE = prev
+
+
+def smem_wavefronts(selector, in_degree) -> float:
+    """Shared-memory wavefronts a K5 warp spends on one edge's scatter
+    (one load and one store per access), by the bank conflicts of its
+    source row's selectors: lane l takes entries l, l + 32, ...; each
+    access takes as many wavefronts as the most lanes on one of the 32
+    banks. Averaged over edges (each row weighted by its in-degree).
+    Counted from the data, not measured on the device."""
+    v, k = selector.shape
+    per_row = torch.zeros(v, dtype=torch.float64, device=selector.device)
+    for c in range(0, k, 32):
+        banks = selector[:, c:c + 32].long() % 32
+        hits = torch.zeros(v, 32, device=selector.device).scatter_add_(
+            1, banks, torch.ones_like(banks, dtype=torch.float32))
+        per_row += hits.max(dim=1).values.double()
+    return float(2 * (per_row * in_degree).sum() / in_degree.sum())
+
+
+# Phase 19's checks: k and D of the CBSR table, and the timed k.
+GATHER_KS = (1, 7, 16, 32, 64, 128)
+GATHER_DIMS = (64, 200, 256)
+GATHER_TIMED_KS = (16, 32, 64)
+
+
+def gather_phase(split_graphs: dict, g, x_full, gen, train,
+                 cbsr_first_loss: float, counted: dict) -> dict:
+    """Phase 19: the CBSR-operand forward (CBSR_GATHER_MODE, K5).
+
+    - K5 bit-equal (torch.equal: +-0 compare equal) to its plain version
+      and to K2 on the expanded operand, and two calls bit-identical, on
+      phase 5's small graph and its split-row boundary graphs, for every
+      k in GATHER_KS (k <= D), D in GATHER_DIMS, bfloat16 and float32;
+    - on the cell graph at k in GATHER_TIMED_KS (bf16 values): K5 against
+      K2 on the expanded operand (the dense baseline), the expansion chain
+      (spgemm_forward_cbsr with the flag off), torch.sparse.mm on the
+      expanded operand, K5's byte bound and the L2-gather model, and the
+      shared-memory wavefronts its selectors cost (counted); at k = 32,
+      the main path's shape, K5 also bit-equal to its plain version, which
+      gives the kernels line its error;
+    - SAGE at phase 9's cell under the flag: 5 steps and an eval, K1 = K2
+      = K3 = K4 = K5 = 4 a step, the first loss equal to phase 10's;
+    - benchmark_graph on syn_small_d64 under the flag, validated (its f32
+      validation runs K5).
+    Returns the kernels line's K5 numbers and the main path's launches
+    (the training and the harness, counts set to 0 just before each)."""
+    from maxk_tpu_torch.bench import harness, roofline
+    from maxk_tpu_torch.ops.cbsr import cbsr_expand, cbsr_topk
+    from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (spgemm_cbsr_csr,
+                                                     spgemm_cbsr_plain)
+    from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
+    from maxk_tpu_torch.ops.spgemm import spgemm_forward_cbsr
+    t0 = time.perf_counter()
+    dev = x_full.device
+
+    def counts() -> dict:
+        return {name: fn.launches for name, fn in counted.items()}
+
+    # -- bit-equal to the plain version and to K2 on the expansion.
+    cases, small_err = 0, 0.0
+    for name, gs in split_graphs.items():
+        empty = torch.diff(gs.indptr) == 0
+        for d in GATHER_DIMS:
+            x = torch.randn(gs.n_nodes, d, device=dev, generator=gen)
+            for k in (k for k in GATHER_KS if k <= d):
+                values, selector = cbsr_topk(x, k)
+                sel8 = selector.to(torch.uint8)
+                for cd in (torch.bfloat16, torch.float32):
+                    vc = values.to(cd)
+                    out = spgemm_cbsr_csr(gs, vc, sel8, d)
+                    again = spgemm_cbsr_csr(gs, vc, sel8, d)
+                    plain = spgemm_cbsr_plain(gs, vc, sel8, d)
+                    k2 = spmm_csr(gs, cbsr_expand(vc, selector, d))
+                    check(torch.equal(out, plain) and torch.equal(out, k2)
+                          and torch.equal(out.view(torch.int32),
+                                          again.view(torch.int32))
+                          and bool((out[empty] == 0).all()),
+                          f"K5 off its plain version, K2 on the expansion "
+                          f"or itself: {name} D={d} k={k} {cd}")
+                    small_err = max(small_err,
+                                    float((out - plain).abs().max()))
+                    cases += 1
+
+    # -- the cell graph: K5 against the dense baseline, the expansion
+    # chain and torch.sparse.mm on the expanded operand.
+    v, d, e = g.n_nodes, x_full.shape[1], g.n_edges
+    sparse = torch_sparse(g)
+    in_degree = torch.bincount(g.indices.long(), minlength=v).double()
+    timing = []
+    for k in GATHER_TIMED_KS:
+        values, selector = cbsr_topk(x_full, k)
+        vb, sel8 = values.to(torch.bfloat16), selector.to(torch.uint8)
+        xe = cbsr_expand(vb, selector, d)
+        out = spgemm_cbsr_csr(g, vb, sel8, d)
+        check(torch.equal(out, spmm_csr(g, xe)),
+              f"K5 off K2 on the expansion at the cell, k={k}")
+        xe32 = xe.float()
+        n_bytes = (v + 1) * 8 + e * (4 + 4) + v * k * (2 + 1) + v * d * 4
+        row = {"k": k, "ms": time_ms(lambda: spgemm_cbsr_csr(g, vb, sel8,
+                                                             d)),
+               "dense_baseline_k2_ms": time_ms(lambda: spmm_csr(g, xe)),
+               "expansion_chain_ms": time_ms(
+                   lambda: spgemm_forward_cbsr(g, values, selector, d)),
+               "torch_sparse_f32_ms": time_ms(
+                   lambda: torch.sparse.mm(sparse, xe32)),
+               "bound": bound_ms(n_bytes, 2 * e * k),
+               "compulsory_bytes": n_bytes,
+               "l2_gather_model_ms": e * 3 * k
+               / roofline.H100["gather_bytes_per_s"] * 1e3,
+               "gathered_bytes": e * 3 * k,
+               "smem_wavefronts_per_edge": smem_wavefronts(selector,
+                                                           in_degree)}
+        row["speedup_over_dense"] = row["dense_baseline_k2_ms"] / row["ms"]
+        row["speedup_over_expansion_chain"] = (row["expansion_chain_ms"]
+                                               / row["ms"])
+        if k == 32:
+            # The main path's shape (SAGE's forward at the cell): K5 held
+            # to its plain version here gives the kernels line its error.
+            plain = spgemm_cbsr_plain(g, vb, sel8, d)
+            check(torch.equal(out, plain),
+                  f"K5 off its plain version at the cell, k={k}")
+            cell_err = float((out - plain).abs().max())
+            del plain
+            row["max_abs_err_vs_plain"] = cell_err
+            row["ms_f32_values"] = time_ms(
+                lambda: spgemm_cbsr_csr(g, values, sel8, d))
+            row["plain_ms"] = time_ms(
+                lambda: spgemm_cbsr_plain(g, vb, sel8, d), 1, 5)
+        timing.append(row)
+        del values, selector, vb, sel8, xe, xe32, out
+    del sparse
+
+    # -- SAGE under the flag: K5 in place of the forward's expansion and K2.
+    n_layers = 4
+    with gather_mode():
+        steps, launches, peak = train(
+            {"k1": n_layers, "k2": n_layers, "k3": n_layers,
+             "k4": n_layers, "k5": n_layers, "k1_wide": 0, "k4_wide": 0})
+    check(steps[0]["loss"] == cbsr_first_loss,
+          f"first loss under the flag {steps[0]['loss']} != phase 10's "
+          f"{cbsr_first_loss}")
+
+    # -- the harness on syn_small_d64 under the flag, validated.
+    for fn in counted.values():
+        fn.launches = 0
+    lines = []
+    with gather_mode():
+        small = harness.benchmark_graph(
+            harness.synthetic_by_name("syn_small_d64"), "syn_small_d64",
+            validate=True, run_gnna=False, run_coo=False,
+            run_fused_mask=False, log=lines.append, device=dev)
+    torch.cuda.synchronize()
+    bench_launches = counts()
+    check(small.validation["passed"] and bench_launches["k5"] > 0,
+          f"syn_small_d64 under the flag: validation {small.validation}, "
+          f"launches {bench_launches}")
+
+    k32 = [r for r in timing if r["k"] == 32][0]
+    emit("cbsr_gather", checked_cases=cases,
+         graphs={n: {"V": gs.n_nodes, "E": gs.n_edges,
+                     "partials_rows": gs.plan.n_partials}
+                 for n, gs in split_graphs.items()},
+         ks=GATHER_KS, dims=GATHER_DIMS, dtypes=["bfloat16", "float32"],
+         bit_equal_to_plain_and_k2=True, two_calls_bit_identical=True,
+         max_abs_err_vs_plain=small_err,
+         cell={"V": v, "E": e, "D": d, "values": "bfloat16",
+               "selector": "uint8"},
+         timing=timing,
+         train=dict(config="sage 4x256 maxk k=32 norm dropout=0.5 bf16 "
+                           "CBSR_GATHER_MODE", steps=steps,
+                    median_step_ms=statistics.median(s["ms"]
+                                                     for s in steps),
+                    launches=launches, peak_mem_gib=peak,
+                    first_loss_equal_to_phase_10=True),
+         harness=dict(graph="syn_small_d64", validation=small.validation,
+                      baseline_ms=small.baseline_ms,
+                      forward_ms=small.forward_ms,
+                      speedup={kk: small.speedup(kk) for kk in small.forward_ms},
+                      launches=bench_launches, log=lines),
+         seconds=round(time.perf_counter() - t0, 3))
+    return dict(
+        launches={n: launches[n] + bench_launches[n] for n in launches},
+        err=cell_err, ms=k32["ms"], plain_ms=k32["plain_ms"],
+        bound=k32["bound"], library_ms=k32["torch_sparse_f32_ms"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1317,11 +1528,12 @@ def main() -> int:
     bnd_src = np.concatenate(
         [np.full(m, 7 * (i + 1)) for i, m in enumerate(lens)]
         + [rng.integers(100, n_b // 2, 8 * n_b)])
-    boundary = {}
+    boundary, split_graphs = {}, {"small": small}
     for name, src_b in (("star", star_src), ("boundary", bnd_src)):
         gb = DeviceCSR.from_csr(CSRGraph.from_coo(
             src_b, rng.integers(0, n_b, len(src_b)).astype(np.int32), n_b,
             rng.uniform(size=len(src_b)).astype(np.float32)), dev)
+        split_graphs[name] = gb     # phase 19 runs K5 on them too
         for dtype in (torch.float32, torch.bfloat16):
             for w in (256, 200):
                 xb = torch.randn(n_b, w, device=dev, generator=gen).to(dtype)
@@ -1539,8 +1751,8 @@ def main() -> int:
                 round(torch.cuda.max_memory_allocated() / 2**30, 3))
 
     steps, launches, peak = train(
-        {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0, "k1_wide": 0,
-         "k4_wide": 0})
+        {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0, "k5": 0,
+         "k1_wide": 0, "k4_wide": 0})
     median_step_ms = statistics.median(s["ms"] for s in steps)
     emit("train", config="sage 4x256 maxk k=32 norm dropout=0.5 bf16",
          V=v, E=csr.n_edges, steps=steps, median_step_ms=median_step_ms,
@@ -1550,7 +1762,7 @@ def main() -> int:
     with cbsr_env():
         steps_c, launches_c, peak_c = train(
             {"k1": n_layers, "k2": 2 * n_layers, "k3": n_layers,
-             "k4": n_layers, "k1_wide": 0, "k4_wide": 0})
+             "k4": n_layers, "k5": 0, "k1_wide": 0, "k4_wide": 0})
     first, first_c = steps[0]["loss"], steps_c[0]["loss"]
     check(abs(first_c - first) <= 1e-6 * abs(first),
           f"CBSR first loss {first_c} != mask route's {first}")
@@ -1827,7 +2039,7 @@ def main() -> int:
         mcfg = types.SimpleNamespace(**{**vars(cfg), "model": name})
         mbundle = GraphBundle.for_model(csr, name, symmetric=True, device=dev)
         m_steps, m_launches, m_peak = train(
-            {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0,
+            {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0, "k5": 0,
              "k1_wide": 0, "k4_wide": 0}, mcfg, mbundle)
         model_steps[name] = dict(
             config=f"{name} 4x256 maxk k=32 norm dropout=0.5 bf16",
@@ -1902,6 +2114,10 @@ def main() -> int:
     # -- 18 row-partitioned training on 2 ranks ----------------------------
     dist_launches = dist_phase(ds, bundle, cfg)
 
+    # -- 19 the CBSR-operand forward (CBSR_GATHER_MODE, K5) -----------------
+    k5 = gather_phase(split_graphs, g, x_full, gen, train,
+                      steps_c[0]["loss"], counted)
+
     # The launches on the main paths: K1 and K2 in SAGE (phase 9), GCN, GIN
     # and GNN_res (phase 14) and the harness (phase 17); K3 and K4 in the
     # CBSR route (phase 10) and the harness; all four on 2 ranks (phase 18).
@@ -1910,6 +2126,8 @@ def main() -> int:
                      for n in ("k1", "k2")}
     main_launches.update({n: launches_c[n] + bench_launches[n]
                           + dist_launches[n] for n in ("k3", "k4")})
+    # K5 on its path: SAGE and the harness under the flag (phase 19).
+    main_launches["k5"] = k5["launches"]["k5"]
 
     def entry(name, source, replaces, n, err, ms, plain, bound, by, lib,
               dist_n):
@@ -1941,6 +2159,10 @@ def main() -> int:
               wide_launches["k4_wide"], wide_err["cbsr_topk_wide"],
               k4w["ms"], k4w["plain_ms"], *k4w["bound"], k4w["library_ms"],
               dist_launches["k4_wide"]),
+        # No pallas_call: the XLA scan _spgemm_cbsr_impl.
+        entry("spgemm_cbsr", "spgemm_cbsr.cu", "spgemm.py:144",
+              main_launches["k5"], k5["err"], k5["ms"], k5["plain_ms"],
+              *k5["bound"], k5["library_ms"], dist_launches["k5"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,7 +12,8 @@ Per graph, at dim_origin=256 (reference kernels/main.cu:52):
   - unweighted neighbor-sum SpMM (the GNNAdvisor SAG-kernel analog in
     torch ops, ``ops/gnna.py``; reference kernels/spmm_gnna.cu:60-140);
   - per k in {16, 32, 64} (main.cu:53-54,113-116): TopK->CBSR timing
-    (K4), the CBSR forward SpGEMM (expansion, then K2), the mask-route
+    (K4), the CBSR forward SpGEMM (expansion, then K2; K5 under
+    ``maxk_tpu_torch.ops.spgemm.CBSR_GATHER_MODE``), the mask-route
     forward (K1, then K2) and the sampled backward SSpMM (K2, then K3),
     4 warmup + 4 timed runs each (spmm_base.h:58-74);
   - numerical validation at the first k: forward output vs a host numpy
@@ -570,17 +571,20 @@ def _gen_cached(gen, gen_name: str, name: str, v: int, d: float,
 
     Multi-million-node synthetic generation costs minutes per graph.
     Structure-only cache (indptr/indices — benchmark values are redrawn
-    per run) keyed by (name, generator, seed) under MAXK_GRAPH_CACHE
-    (default: maxk_graph_cache in the temporary directory); graphs small
-    in BOTH nodes and edges regenerate in seconds and skip the cache
-    (reddit is node-small but edge-huge).
+    per run) keyed by (name, generator, v, d, seed) under MAXK_GRAPH_CACHE
+    (default: maxk_graph_cache in the temporary directory), in files named
+    ``torch_...``: a retuned spec regenerates its graph, and the JAX
+    package's files in the same directory are never read. Graphs small in
+    BOTH nodes and edges regenerate in seconds and skip the cache (reddit
+    is node-small but edge-huge).
     """
     if v < 500_000 and v * d < 20_000_000:
         return gen(v, d, seed=seed)
     cache_dir = os.environ.get(
         "MAXK_GRAPH_CACHE", os.path.join(tempfile.gettempdir(),
                                          "maxk_graph_cache"))
-    path = os.path.join(cache_dir, f"{name}@{gen_name}_s{seed}.npz")
+    path = os.path.join(cache_dir,
+                        f"torch_{name}@{gen_name}_v{v}_d{d!r}_s{seed}.npz")
     if os.path.exists(path):
         with np.load(path) as z:
             return CSRGraph(z["indptr"], z["indices"])

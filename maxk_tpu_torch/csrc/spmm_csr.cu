@@ -39,8 +39,9 @@
 // - float32 accumulators stay in registers; each lane sums its columns
 //   over the segment's edges in CSR order.
 // A row of one segment writes out directly. A split row's segments write
-// float32 partials to a workspace; a second kernel sums each split row's
-// partials in segment order, and writes zeros to the zero-degree rows.
+// float32 partials to a workspace; a second kernel (segment_plan.cuh,
+// shared with K5) sums each split row's partials in segment order, and
+// writes zeros to the zero-degree rows.
 // No atomics: every sum has a fixed order, so the result is bit-for-bit
 // deterministic.
 
@@ -48,13 +49,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_plan.cuh"
+
 namespace {
+
+using segplan::Plan;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kSlab = 128;            // columns of x a pass covers
 constexpr int kGathers = 4;           // loads a lane issues before FMAs
-constexpr int kFinishThreads = 64;
-constexpr int kFinishInFlight = 16;   // partial rows a thread loads ahead
 
 template <typename T, int VEC>
 struct Gather;
@@ -115,18 +118,6 @@ struct Gather<__nv_bfloat16, 1> {
                                              float* acc) {
     acc[0] = fmaf(w, __uint_as_float((uint32_t)r << 16), acc[0]);
   }
-};
-
-// The segment plan, as ops/graph.py SegmentPlan lays it out.
-struct Plan {
-  const int32_t* seg_row;     // (n_seg,) row of each segment
-  const int64_t* seg_start;   // (n_seg,) its first edge
-  const int32_t* seg_slot;    // (n_seg,) its partials row, -1: write out
-  int64_t n_seg;
-  int seg_len;
-  const int32_t* fin_row;     // (n_fin,) split rows, then zero-degree rows
-  const int64_t* fin_ptr;     // (n_fin + 1,) their ranges of partials rows
-  int64_t n_fin;
 };
 
 template <typename T, int VEC>
@@ -213,49 +204,12 @@ spmm_segment_kernel(const int64_t* __restrict__ indptr,
   }
 }
 
-// One block per row of the finish list: out[row] = sum of its partials
-// rows, in segment order, from 0.0f; an empty range writes zeros.
+// The finish pass (segment_plan.cuh) under this kernel's name.
 template <int VEC>
-__global__ void __launch_bounds__(kFinishThreads)
+__global__ void __launch_bounds__(segplan::kFinishThreads)
 spmm_finish_kernel(const float* __restrict__ partials,
                    float* __restrict__ out, const Plan plan, int d) {
-  const int64_t i = blockIdx.x;
-  const int64_t row = plan.fin_row[i];
-  const int64_t p0 = plan.fin_ptr[i];
-  const int64_t p1 = plan.fin_ptr[i + 1];
-  for (int f = threadIdx.x * VEC; f < d; f += kFinishThreads * VEC) {
-    float acc[VEC];
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) acc[q] = 0.0f;
-    for (int64_t p = p0; p < p1; p += kFinishInFlight) {
-      float part[kFinishInFlight][VEC];
-#pragma unroll
-      for (int j = 0; j < kFinishInFlight; ++j) {
-        if (p + j < p1) {
-          const float* src = partials + (p + j) * d + f;
-          if constexpr (VEC == 4) {
-            const float4 v = *reinterpret_cast<const float4*>(src);
-            part[j][0] = v.x; part[j][1] = v.y;
-            part[j][2] = v.z; part[j][3] = v.w;
-          } else {
-            part[j][0] = *src;
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kFinishInFlight; ++j)
-        if (p + j < p1)
-#pragma unroll
-          for (int q = 0; q < VEC; ++q) acc[q] += part[j][q];
-    }
-    float* o = out + row * d + f;
-    if constexpr (VEC == 4) {
-      *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2],
-                                                  acc[3]);
-    } else {
-      *o = acc[0];
-    }
-  }
+  segplan::finish_rows<VEC>(partials, out, plan, d);
 }
 
 template <typename T, int VEC>
@@ -277,17 +231,8 @@ cudaError_t launch(const void* indptr, const void* indices,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (plan.n_fin > 0) {
-    // out and partials come from torch.empty (aligned), so whole float4
-    // rows need only d % 4 == 0.
-    if (d % 4 == 0)
-      spmm_finish_kernel<4><<<(unsigned)plan.n_fin, kFinishThreads, 0, s>>>(
-          pp, op, plan, d);
-    else
-      spmm_finish_kernel<1><<<(unsigned)plan.n_fin, kFinishThreads, 0, s>>>(
-          pp, op, plan, d);
-  }
-  return cudaGetLastError();
+  return segplan::launch_finish(spmm_finish_kernel<4>, spmm_finish_kernel<1>,
+                                pp, op, plan, d, s);
 }
 
 template <typename T>
@@ -296,11 +241,8 @@ int dispatch(const void* indptr, const void* indices, const void* vals,
              const void* seg_start, const void* seg_slot, int64_t n_seg,
              int seg_len, const void* fin_row, const void* fin_ptr,
              int64_t n_fin, int d, int vec, void* stream) {
-  const Plan plan{static_cast<const int32_t*>(seg_row),
-                  static_cast<const int64_t*>(seg_start),
-                  static_cast<const int32_t*>(seg_slot), n_seg, seg_len,
-                  static_cast<const int32_t*>(fin_row),
-                  static_cast<const int64_t*>(fin_ptr), n_fin};
+  const Plan plan = segplan::make_plan(seg_row, seg_start, seg_slot, n_seg,
+                                       seg_len, fin_row, fin_ptr, n_fin);
   if (vec == 4)
     return launch<T, 4>(indptr, indices, vals, x, out, partials, plan, d,
                         stream);

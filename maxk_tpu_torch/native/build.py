@@ -7,8 +7,8 @@ plain C interface (no PyTorch headers, so a build takes seconds):
        -Xcompiler -fPIC -Xptxas -v -o build/maxk_tpu_torch/<name>-<hash>.so
 
 The library lands in ``build/maxk_tpu_torch/`` of the checkout, keyed by
-a hash of its source and the flags, so a changed source rebuilds and an
-unchanged one loads at once. ``ptxas``'s register and spill report is
+a hash of its source, the shared headers (``csrc/*.cuh``) and the flags,
+so a changed source rebuilds and an unchanged one loads at once. ``ptxas``'s register and spill report is
 kept beside it as ``<name>-<hash>.ptxas.txt``. ``build_all`` starts every
 build together; a wrapper's first launch loads (and if needed builds)
 only its own library.
@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "maxk_tpu_torch"
 # Every source in csrc/: the kernels, and the roofline's gather probe.
 KERNELS = ("maxk_topk", "cbsr_topk", "spmm_csr", "cbsr_gather",
-           "topk_wide", "gather_probe")
+           "topk_wide", "spgemm_cbsr", "gather_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,6 +49,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

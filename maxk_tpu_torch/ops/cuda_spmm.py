@@ -56,7 +56,16 @@ def spmm_csr_plain(g: DeviceCSR, x: torch.Tensor) -> torch.Tensor:
         cols = g.indices[lo:lo + step].long()
         contrib = g.values[lo:lo + step, None] * x[cols].float()
         seg.index_add_(0, seg_of_edge[lo:lo + step], contrib)
+    return finish_plain(g, seg)
 
+
+def finish_plain(g: DeviceCSR, seg: torch.Tensor) -> torch.Tensor:
+    """The finish pass of the plan (``csrc/segment_plan.cuh``) on float32
+    segment sums ``seg`` (n_segments, D): each row takes its segment's
+    row or, if split, the sum of its segments' rows in segment order,
+    from 0.0; zero-degree rows are zeros."""
+    plan = _plan(g)
+    d, dev = seg.shape[1], seg.device
     out = torch.zeros((g.n_nodes, d), dtype=torch.float32, device=dev)
     direct = plan.seg_slot < 0
     out[plan.seg_row[direct].long()] = seg[direct]

@@ -34,9 +34,20 @@ backward hands dS to the sampler in bfloat16, as the JAX package does,
 so its dx is the mask route's dx rounded to bfloat16. It comes back in
 x's dtype: the JAX package returns a bfloat16 cotangent there.
 
-Not ported (ROADMAP item 10): the ``"int8_rowscale"`` compute mode, which
-``resolve_compute_dtype`` refuses, and the CBSR-operand gather
-formulation (``CBSR_GATHER_MODE``).
+CBSR-operand forward (``CBSR_GATHER_MODE = True``, a module attribute
+read at call time, as the JAX package reads its own at trace time): the
+CBSR route everywhere (``uses_cbsr``), with K5 (``ops/cuda_spgemm_cbsr.py``)
+in place of the expansion and K2 in the forward where the JAX package's
+gate holds (dim <= 256, 1 <= k <= 128): on one device, and on a shard in
+the all-gather mode, where K5 reads the received table. It reads k values
+(in the compute dtype) and k uint8 selectors per edge, and its sums are
+K2's on the expanded operand, bit for bit up to the sign of a zero.
+Outside the gate, and in halo mode, the expansion runs, as in the JAX
+package. The backward is the CBSR route's.
+
+Not ported (ROADMAP queue 1, "opt-in compute modes"): the
+``"int8_rowscale"`` compute mode, which ``resolve_compute_dtype``
+refuses.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import os
 import torch
 
 from maxk_tpu_torch.ops.cbsr import cbsr_expand, cbsr_gather, cbsr_topk
+from maxk_tpu_torch.ops.cuda_spgemm_cbsr import MAX_DIM, MAX_K, spgemm_cbsr_csr
 from maxk_tpu_torch.ops.cuda_topk import maxk_forward
 from maxk_tpu_torch.ops.graph import DeviceCSR
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
@@ -55,6 +67,10 @@ from maxk_tpu_torch.ops.spmm import (DTypeLike, gather_table,
 # The packed wire's widest row: its selectors are uint8.
 WIRE_MAX_D = 256
 
+# Opt-in: the forward reads CBSR rows per edge (K5), as the JAX package's
+# CBSR_GATHER_MODE does. Off by default; read at call time.
+CBSR_GATHER_MODE = False
+
 
 def cbsr_route() -> bool:
     """True when MAXK_FUSED_MASK=0 selects the CBSR route."""
@@ -62,9 +78,15 @@ def cbsr_route() -> bool:
 
 
 def uses_cbsr(g: DeviceCSR) -> bool:
-    """True where maxk_spgemm runs on CBSR: under MAXK_FUSED_MASK=0, and
-    on every row shard, where CBSR is the wire format."""
-    return cbsr_route() or g.exchange is not None
+    """True where maxk_spgemm runs on CBSR: under MAXK_FUSED_MASK=0 or
+    CBSR_GATHER_MODE, and on every row shard, where CBSR is the wire
+    format."""
+    return cbsr_route() or CBSR_GATHER_MODE or g.exchange is not None
+
+
+def _gather_gate(dim: int, k: int) -> bool:
+    """The JAX package's gate of the CBSR-operand forward."""
+    return CBSR_GATHER_MODE and dim <= MAX_DIM and 1 <= k <= MAX_K
 
 
 def _wire_dtypes(dim: int, cd: torch.dtype):
@@ -92,17 +114,32 @@ def cbsr_unwire(wire: torch.Tensor, k: int, dim: int,
             wire[:, vb:].contiguous().view(st))
 
 
+def _spgemm_cbsr_gather(g: DeviceCSR, values: torch.Tensor,
+                        selector: torch.Tensor, dim: int,
+                        cd: torch.dtype) -> torch.Tensor:
+    """K5 on the (values in cd, uint8 selectors) table."""
+    return spgemm_cbsr_csr(g, values.to(cd).contiguous(),
+                           selector.to(torch.uint8).contiguous(), dim)
+
+
 def spgemm_forward_cbsr(g: DeviceCSR, values: torch.Tensor,
                         selector: torch.Tensor, dim: int,
                         compute_dtype: DTypeLike = None) -> torch.Tensor:
-    """A @ expand(values, selector): node-level expansion, then K2. On a
-    row shard the CBSR rows cross the wire first and the whole table is
-    expanded."""
-    if g.exchange is None:
-        return spmm(g, cbsr_expand(values, selector, dim), compute_dtype)
+    """A @ expand(values, selector), in values' dtype: K5 on the CBSR rows
+    under CBSR_GATHER_MODE's gate, else node-level expansion, then K2. On
+    a row shard the CBSR rows cross the wire first; in halo mode the
+    whole table is expanded."""
     cd = resolve_compute_dtype(compute_dtype, values.dtype)
+    gather = _gather_gate(dim, values.shape[1])
+    if g.exchange is None:
+        if gather:
+            return _spgemm_cbsr_gather(g, values, selector, dim,
+                                       cd).to(values.dtype)
+        return spmm(g, cbsr_expand(values, selector, dim), cd)
     table = gather_table(g, cbsr_wire(values, selector, dim, cd))
     v, s = cbsr_unwire(table, values.shape[1], dim, cd)
+    if gather and getattr(g.exchange, "whole_table", False):
+        return _spgemm_cbsr_gather(g, v, s, dim, cd).to(values.dtype)
     x = cbsr_expand(v, s, dim).to(cd).contiguous()
     return spmm_csr(g, x).to(values.dtype)
 
@@ -154,7 +191,8 @@ class _MaxKSpgemmCBSR(torch.autograd.Function):
 def maxk_spgemm(g: DeviceCSR, g_t: DeviceCSR, x: torch.Tensor, k: int,
                 compute_dtype: DTypeLike = None) -> torch.Tensor:
     """Fused y = A @ MaxK_k(x), on the CBSR route under MAXK_FUSED_MASK=0
-    or on a row shard, and on the mask route otherwise.
+    or CBSR_GATHER_MODE or on a row shard, and on the mask route
+    otherwise.
 
     g: adjacency (values encode the aggregation normalization); g_t: its
     transpose (g itself for a symmetric matrix); x: (V, D) float32;

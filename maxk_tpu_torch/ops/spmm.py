@@ -72,7 +72,7 @@ def resolve_compute_dtype(compute_dtype: DTypeLike,
         if compute_dtype not in _DTYPES:
             raise NotImplementedError(
                 f"compute_dtype {compute_dtype!r} is not ported yet "
-                f"(ROADMAP slice 3, item 10: opt-in compute modes)")
+                f"(ROADMAP.md, queue 1: \"opt-in compute modes\")")
         return _DTYPES[compute_dtype]
     return compute_dtype
 

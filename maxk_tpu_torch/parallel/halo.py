@@ -72,6 +72,9 @@ class HaloSpec:
     send_counts: tuple
     recv_counts: tuple
     group: GraphGroup
+    # The table is local rows and halo rows, not every rank's: the CBSR
+    # forward expands it, as the JAX package's halo mode does (not a field).
+    whole_table = False
 
     def table(self, x_local: torch.Tensor) -> torch.Tensor:
         return halo_exchange(x_local, self, self.group)
@@ -83,6 +86,9 @@ class GatherSpec:
     package's ``gather_axis``)."""
 
     group: GraphGroup
+    # The table is every rank's rows, which K5 reads under
+    # CBSR_GATHER_MODE (ops/spgemm.py; not a field).
+    whole_table = True
 
     def table(self, x_local: torch.Tensor) -> torch.Tensor:
         return all_gather_rows(x_local, self.group)

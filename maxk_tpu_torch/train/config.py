@@ -8,7 +8,7 @@ utils/config.py names) plus ``--device``.
 ``--process_id`` holding ranks ``process_id * local_device_count`` on.
 ``--no_halo`` all-gathers the operand instead of the halo exchange.
 ``--model_parallel`` > 1 (tensor-parallel Dense layers) is not ported
-yet and is refused (ROADMAP.md, queue 1, item 6).
+yet and is refused (ROADMAP.md, queue 1: "tensor parallelism").
 """
 
 from __future__ import annotations
@@ -127,7 +127,8 @@ class TrainConfig(argparse.ArgumentParser):
                 f"torch.topk would fail the same way at the first layer)")
         if config.model_parallel > 1:
             self.error("--model_parallel > 1: tensor-parallel Dense layers "
-                       "are not ported yet (ROADMAP.md, queue 1, item 6)")
+                       "are not ported yet (ROADMAP.md, queue 1: \"tensor "
+                       "parallelism\")")
         self._check_layout(config)
         if config.path is None:
             ts = time.strftime("%Y%m%d_%H%M%S")

@@ -176,6 +176,34 @@ def test_suite_specs_equal_to_jax():
     assert harness.synthetic_by_name("no_such_graph") is None
 
 
+def test_graph_cache_keys_on_size(tmp_path, monkeypatch):
+    """A suite graph past the cache's threshold is cached under its name,
+    generator, v, d and seed, in a file of the port's own: a spec whose v
+    changes regenerates, the same spec loads the file, and a JAX package
+    file of the old name in the same directory is never read."""
+    monkeypatch.setenv("MAXK_GRAPH_CACHE", str(tmp_path))
+    calls = []
+
+    def gen(v, d, seed):
+        calls.append((v, d, seed))
+        n = len(calls)
+        return CSRGraph(np.array([0, n], np.int64),
+                        np.zeros(n, np.int32))
+
+    np.savez(tmp_path / "g@power_s1.npz", indptr=np.array([0, 9]),
+             indices=np.zeros(9, np.int32))
+    first = harness._gen_cached(gen, "power", "g", 500_000, 2.5, 1)
+    again = harness._gen_cached(gen, "power", "g", 500_000, 2.5, 1)
+    bigger = harness._gen_cached(gen, "power", "g", 500_001, 2.5, 1)
+    denser = harness._gen_cached(gen, "power", "g", 500_000, 3.0, 1)
+    assert calls == [(500_000, 2.5, 1), (500_001, 2.5, 1),
+                     (500_000, 3.0, 1)]
+    assert [g.n_edges for g in (first, again, bigger, denser)] == \
+        [1, 1, 2, 3]
+    assert all(p.name.startswith("torch_") for p in tmp_path.iterdir()
+               if p.name != "g@power_s1.npz")
+
+
 # -- the comparators ----------------------------------------------------------
 
 @pytest.mark.parametrize("chunk_elems", [None, 64])

@@ -1,4 +1,4 @@
-"""K1-K4, and the wide top-k kernel for D > 1024, on the card against
+"""K1-K5, and the wide top-k kernel for D > 1024, on the card against
 their plain PyTorch versions.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
@@ -17,7 +17,9 @@ CSR order. On the split-boundary graphs (a star row, rows of S-1, S, S+1
 and 2S+1 edges) K2 is held to that plus the two-order bound of each
 row's sum, 2 n_r 2**-24 sum_e |v_e x_e|, since the star row sums
 hundreds of terms. K2 is bit-for-bit deterministic: two calls give the
-same bits.
+same bits. K5 equals its plain version and K2 on the expanded operand
+(torch.equal: all three sum each column in edge order with one rounding
+per term), and two calls give the same bits.
 """
 
 import dataclasses
@@ -29,6 +31,8 @@ import torch
 from maxk_tpu_torch.ops.cbsr import cbsr_expand
 from maxk_tpu_torch.ops.cuda_gather import (cbsr_gather_forward,
                                             cbsr_gather_plain)
+from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (spgemm_cbsr_csr,
+                                                 spgemm_cbsr_plain)
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
 from maxk_tpu_torch.ops.cuda_topk import (WIDE_SMEM_CAP, cbsr_topk_forward,
                                           cbsr_topk_forward_wide,
@@ -302,17 +306,40 @@ def test_k2_refuses_graph_without_plan(cuda_device):
     assert spmm_csr.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(1, 64), (7, 64), (16, 200), (32, 256),
+                                 (64, 256), (128, 256)])
+@pytest.mark.parametrize("kind", ["star", "boundary"])
+def test_k5_equals_plain_and_k2_on_expansion(cuda_device, kind, k, d,
+                                             dtype):
+    """K5 sums each column in edge order with fmaf, as its plain version
+    and as K2 on the expanded operand do: equal as values (+-0 aside)."""
+    csr = _split_graph(kind, 8)
+    g = DeviceCSR.from_csr(csr, cuda_device, seg_len=8)
+    x = _x("normal", csr.n_nodes, d, seed=k).to(cuda_device)
+    values, selector = cbsr_topk_forward(x, k)
+    values, sel8 = values.to(dtype), selector.to(torch.uint8)
+    out = spgemm_cbsr_csr(g, values, sel8, d)
+    assert torch.equal(out, spgemm_cbsr_plain(g, values, sel8, d))
+    assert torch.equal(out, spmm_csr(g, cbsr_expand(values, selector, d)))
+    assert torch.equal(out.view(torch.int32),
+                       spgemm_cbsr_csr(g, values, sel8, d).view(torch.int32))
+
+
 def test_launch_counters_count_kernel_launches(cuda_device):
     g = DeviceCSR.from_csr(_graph("uniform", 64, seed=4), cuda_device)
     x = _x("normal", 64, 32, seed=5).to(cuda_device)
     wide = _x("normal", 8, 1100, seed=5).to(cuda_device)
     kernels = (maxk_forward, spmm_csr, cbsr_gather_forward,
-               cbsr_topk_forward, maxk_forward_wide, cbsr_topk_forward_wide)
+               cbsr_topk_forward, maxk_forward_wide, cbsr_topk_forward_wide,
+               spgemm_cbsr_csr)
     before = [fn.launches for fn in kernels]
     maxk_forward(x, 4)
     spmm_csr(g, x)
-    _, sel = cbsr_topk_forward(x, 4)
+    vals, sel = cbsr_topk_forward(x, 4)
     cbsr_gather_forward(x, sel)
+    spgemm_cbsr_csr(g, vals, sel.to(torch.uint8), 32)
+    spgemm_cbsr_plain(g, vals, sel.to(torch.uint8), 32)
     maxk_forward(wide, 4)
     cbsr_topk_forward(wide, 4)
     maxk_forward_plain(x, 4)

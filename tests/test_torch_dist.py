@@ -8,7 +8,9 @@ port), runs ``torch_dist_ranks.run`` and returns each rank's results:
   all-gather mode are bit-equal to the single-device port at float32,
   and so is ``maxk_spgemm`` at bfloat16, whose halo rows cross on the
   packed wire (bf16 values, uint8 selectors); the single-device side
-  runs the CBSR route, which a shard always takes;
+  runs the CBSR route, which a shard always takes; under
+  ``CBSR_GATHER_MODE`` the all-gather mode's ``maxk_spgemm`` (K5 on the
+  gathered table) is bit-equal to one device's under the flag;
 - ``DistTrainer``'s 3 losses for SAGE, GCN, GIN and GNN_res (norm on) at
   dropout 0 and float32 are within rtol 1e-5 of ``Trainer``'s, and so
   are the gradients after the first all-reduce (atol 1e-6). V = 301
@@ -41,6 +43,7 @@ from maxk_tpu.data.datasets import make_synthetic_dataset as jax_dataset
 from maxk_tpu.parallel.dist_train import DistTrainer as JaxDistTrainer
 from maxk_tpu.parallel.mesh import make_graph_mesh
 from maxk_tpu_torch.data.datasets import make_synthetic_dataset
+from maxk_tpu_torch.ops import spgemm as spgemm_module
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
 from maxk_tpu_torch.ops.spmm import spmm_t
@@ -176,6 +179,26 @@ def test_sharded_ops_bit_equal_one_device(ranks, inputs, graph, monkeypatch,
          else maxk_spgemm(g, g_t, x, K, cd))
     y.backward(torch.from_numpy(inputs["dy"]))
     key = (name, cd, halo)
+    np.testing.assert_array_equal(
+        _bits(_rows(ranks, lambda r: r["ops"][key][0])),
+        _bits(y.detach().numpy()))
+    np.testing.assert_array_equal(
+        _bits(_rows(ranks, lambda r: r["ops"][key][1])),
+        _bits(x.grad.numpy()))
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_sharded_gather_mode_bit_equal_one_device(ranks, inputs, graph,
+                                                  monkeypatch, cd):
+    """CBSR_GATHER_MODE in all-gather mode: each shard's K5 reads the
+    gathered table; its rows equal one device's under the flag."""
+    monkeypatch.setattr(spgemm_module, "CBSR_GATHER_MODE", True)
+    g = DeviceCSR.from_csr(graph, "cpu")
+    g_t = DeviceCSR.from_csr(graph.transpose(), "cpu")
+    x = torch.from_numpy(inputs["x"]).requires_grad_(True)
+    y = maxk_spgemm(g, g_t, x, K, cd)
+    y.backward(torch.from_numpy(inputs["dy"]))
+    key = ("spgemm_gather", cd, False)
     np.testing.assert_array_equal(
         _bits(_rows(ranks, lambda r: r["ops"][key][0])),
         _bits(y.detach().numpy()))

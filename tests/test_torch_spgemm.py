@@ -219,5 +219,5 @@ def test_sspmm_sampled_matches_jax(graph, compute_dtype):
 def test_int8_rowscale_not_ported():
     dev = DeviceCSR.from_csr(CSRGraph.from_coo([0, 1], [1, 0], 2), "cpu")
     v, s = torch.ones(2, 1), torch.zeros(2, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="opt-in compute modes"):
         spgemm_forward_cbsr(dev, v, s, 4, "int8_rowscale")

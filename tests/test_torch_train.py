@@ -281,7 +281,7 @@ def test_profile_written_on_early_stop(tmp_path):
 
 
 @pytest.mark.parametrize("flag,says", [
-    (["--model_parallel", "2"], "ROADMAP"),
+    (["--model_parallel", "2"], 'ROADMAP.md, queue 1: "tensor parallelism"'),
     (["--num_processes", "2"], "only with --distributed"),
     (["--n_devices", "2", "--local_device_count", "3"], "is not")])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag, says):

@@ -11,6 +11,7 @@ import types
 import numpy as np
 import torch
 
+from maxk_tpu_torch.ops import spgemm as spgemm_module
 from maxk_tpu_torch.ops.graph import CSRGraph
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
 from maxk_tpu_torch.ops.spmm import spmm_t
@@ -21,7 +22,9 @@ from maxk_tpu_torch.train.checkpoint import CheckpointManager
 
 def _ops(group, inputs) -> dict:
     """This rank's rows of spmm_t and maxk_spgemm (forward and dx) on its
-    shards, in halo and all-gather mode, at each compute dtype."""
+    shards, in halo and all-gather mode, at each compute dtype; and of
+    maxk_spgemm under CBSR_GATHER_MODE in all-gather mode, where K5 reads
+    the received table ("spgemm_gather")."""
     csr = CSRGraph(*inputs["graph"])
     x, dy, k = inputs["x"], inputs["dy"], inputs["k"]
     out = {}
@@ -31,11 +34,19 @@ def _ops(group, inputs) -> dict:
         g_t = shard_graph(csr.transpose(), group.size, halo).local(group)
         x_l = torch.from_numpy(local_rows(x, sg, group.rank))
         dy_l = torch.from_numpy(local_rows(dy, sg, group.rank))
-        for name, cd in (("spmm", "float32"), ("spgemm", "float32"),
-                         ("spgemm", "bfloat16")):
+        cases = [("spmm", "float32"), ("spgemm", "float32"),
+                 ("spgemm", "bfloat16")]
+        if not halo:
+            cases += [("spgemm_gather", "float32"),
+                      ("spgemm_gather", "bfloat16")]
+        for name, cd in cases:
             xg = x_l.clone().requires_grad_(True)
-            y = (spmm_t(g, g_t, xg, cd) if name == "spmm"
-                 else maxk_spgemm(g, g_t, xg, k, cd))
+            spgemm_module.CBSR_GATHER_MODE = name == "spgemm_gather"
+            try:
+                y = (spmm_t(g, g_t, xg, cd) if name == "spmm"
+                     else maxk_spgemm(g, g_t, xg, k, cd))
+            finally:
+                spgemm_module.CBSR_GATHER_MODE = False
             y.backward(dy_l)
             out[(name, cd, halo)] = (y.detach().numpy(), xg.grad.numpy())
     return out

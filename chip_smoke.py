@@ -99,12 +99,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  19 cbsr_gather  the CBSR-operand forward (CBSR_GATHER_MODE, K5): K5
                  bit-equal (torch.equal) to its plain version and to K2 on
                  the expanded operand, two calls bit-identical, on phase
-                 5's small and split-boundary graphs at k = 1, 7, 16, 32,
-                 64, 128 (k <= D), D = 64, 200, 256, bf16 and f32; at the
-                 cell (phase 9's graph) for k = 16, 32, 64: K5's time vs
-                 K2 on the expanded bf16 operand, the expansion chain and
-                 torch.sparse.mm, its byte bound, the L2-gather model and
-                 the shared-memory wavefronts its selectors cost; SAGE at
+                 5's small and split-boundary graphs at each k where its
+                 dispatch changes (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63,
+                 64, 65, 128; k <= D), D = 64, 199, 200, 256, bf16 and
+                 f32; at the cell (phase 9's graph) for k = 16, 32, 64:
+                 K5's time (its pack pass included) vs K2 on the expanded
+                 bf16 operand, the expansion chain and torch.sparse.mm,
+                 its byte bound, the L2-gather model and its wavefront
+                 model an edge (scatter, staging, records, flush) with the
+                 floor at the SM clock nvidia-smi reported; the pack pass
+                 equal to its plain version at k = 32; SAGE at
                  phase 9's cell under the flag (K1 = K2 = K3 = K4 = K5 = 4
                  a step, first loss equal to phase 10's); benchmark_graph
                  on syn_small_d64 under the flag, validated
@@ -164,7 +168,8 @@ OP_GROUPS = (
     ("K2", ("spmm_segment_kernel", "spmm_finish_kernel")),
     ("K3", ("cbsr_gather_kernel",)),
     ("K4", ("cbsr_topk_kernel",)),
-    ("K5", ("spgemm_cbsr_kernel", "spgemm_cbsr_finish_kernel")),
+    ("K5", ("spgemm_cbsr_kernel", "spgemm_cbsr_pack_kernel",
+            "spgemm_cbsr_finish_kernel")),
     ("wide", ("topk_wide_kernel",)),
     ("GEMM", ("gemm", "gemv", "nvjet", "splitKreduce", "cutlass")),
     ("LayerNorm", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -1136,26 +1141,108 @@ def gather_mode():
         spgemm.CBSR_GATHER_MODE = prev
 
 
-def smem_wavefronts(selector, in_degree) -> float:
-    """Shared-memory wavefronts a K5 warp spends on one edge's scatter
-    (one load and one store per access), by the bank conflicts of its
-    source row's selectors: lane l takes entries l, l + 32, ...; each
-    access takes as many wavefronts as the most lanes on one of the 32
-    banks. Averaged over edges (each row weighted by its in-degree).
-    Counted from the data, not measured on the device."""
-    v, k = selector.shape
-    per_row = torch.zeros(v, dtype=torch.float64, device=selector.device)
-    for c in range(0, k, 32):
-        banks = selector[:, c:c + 32].long() % 32
-        hits = torch.zeros(v, 32, device=selector.device).scatter_add_(
-            1, banks, torch.ones_like(banks, dtype=torch.float32))
-        per_row += hits.max(dim=1).values.double()
-    return float(2 * (per_row * in_degree).sum() / in_degree.sum())
+@contextlib.contextmanager
+def sm_clock():
+    """The SM clock (MHz) nvidia-smi reports every 50 ms while the block
+    runs, and once just before it: yields a list that holds the samples
+    after it."""
+    samples = []
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        # The first sample, so that a short block has one.
+        first = proc.stdout.readline()
+        yield samples
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+        samples.extend(float(t) for t in (first + out).split()
+                       if t.isdigit())
+        check(len(samples) > 0, "nvidia-smi gave no SM clock sample")
 
 
-# Phase 19's checks: k and D of the CBSR table, and the timed k.
-GATHER_KS = (1, 7, 16, 32, 64, 128)
-GATHER_DIMS = (64, 200, 256)
+def k5_wavefronts(g, selector, k: int, value_bytes: int,
+                  sm_mhz: float) -> dict:
+    """K5's L1 data-stage wavefronts an edge, counted from the data for
+    the kernel's schedule (csrc/spgemm_cbsr.cu), and the floor they set:
+    E * total / 132 SMs at one wavefront a clock at `sm_mhz`.
+    - scatter: a shared-memory load and store per access; an access
+      covers one edge of each of the warp's segments (items of the
+      plan's work list, step by step) and entries c*L .. c*L + L - 1 of
+      it, and takes as many wavefronts as the most lanes on one bank;
+    - staging: the 16-byte reads of the staged columns and values (two
+      every 4 steps), and the fill (two 128-byte loads and two shared
+      stores per 32 steps and segment);
+    - records: the 128-byte lines each load of a table row touches: a
+      (bf16 << 16 | selector) record row of 4k bytes, or with float32
+      values a values row of 4k bytes and a selector row of k;
+    - flush: the row's shared read and zeroing and its global store.
+    Not measured on the device."""
+    plan, dev = g.plan, selector.device
+    v, d = selector.shape[0], 256
+    # Lanes a segment takes: 8 at k <= 8 (four segments a warp), 16 at
+    # k <= 16 (two), else the warp's 32.
+    lanes = 8 if k <= 8 else 16 if k <= 16 else 32
+    per = 32 // lanes
+    work = plan.work
+    start, n = work[:, 0], (work[:, 1] >> 32)
+    e, n_seg = g.n_edges, plan.n_segments
+    in_degree = torch.bincount(g.indices.long(), minlength=v).double()
+    # Bank histogram of each row's entries, one per access c.
+    hist = []
+    for c in range(0, k, lanes):
+        banks = selector[:, c:c + lanes].long() % 32
+        hist.append(torch.zeros(v, 32, device=dev).scatter_add_(
+            1, banks, torch.ones_like(banks, dtype=torch.float32)))
+    n_items = (n_seg + per - 1) // per
+    steps = n[torch.arange(n_items, device=dev) * per]
+    item = torch.repeat_interleave(torch.arange(n_items, device=dev), steps)
+    step = (torch.arange(item.shape[0], device=dev)
+            - (torch.cumsum(steps, 0) - steps)[item])
+    scatter = 0.0
+    for lo in range(0, item.shape[0], 1 << 21):
+        it, j = item[lo:lo + (1 << 21)], step[lo:lo + (1 << 21)]
+        rows = []
+        for p in range(per):
+            s = it * per + p
+            ok = s < n_seg
+            s = torch.where(ok, s, 0)
+            ok &= j < n[s]
+            rows.append((ok, g.indices[torch.where(ok, start[s] + j,
+                                                   0)].long()))
+        for h in hist:
+            # Segment p's row sits p * d floats along: its banks shift.
+            total = sum(torch.where(ok[:, None],
+                                    h[r].roll(p * d % 32, dims=1), 0.0)
+                        for p, (ok, r) in enumerate(rows))
+            scatter += 2 * float(total.max(dim=1).values.sum())
+    chunks = float(((steps + 31) // 32).sum())
+    staging = 2 * float(((steps + 3) // 4).sum()) + 4 * per * chunks
+    lines = 0.0
+    rows = torch.arange(v, device=dev, dtype=torch.float64)
+    for rb in ((4,) if value_bytes == 2 else (4, 1)):
+        for c in range(0, k, lanes):
+            first = rows * k * rb + c * rb
+            last = first + min(lanes, k - c) * rb - 1
+            lines += float((((last // 128) - (first // 128) + 1)
+                            * in_degree).sum())
+    flush = n_seg * 3 * d * 4 / 128
+    model = {"lanes": lanes, "segments_a_warp": per,
+             "scatter": scatter / e, "staging": staging / e,
+             "records": lines / e, "flush": flush / e}
+    model["total"] = sum(model[x] for x in ("scatter", "staging",
+                                            "records", "flush"))
+    model["floor_ms"] = e * model["total"] / 132 / (sm_mhz * 1e3)
+    model["sm_mhz"] = sm_mhz
+    return model
+
+
+# Phase 19's checks: k and D of the CBSR table (every k where K5's
+# dispatch changes; D % 4 != 0 takes its scalar flush), and the timed k.
+GATHER_KS = (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 128)
+GATHER_DIMS = (64, 199, 200, 256)
 GATHER_TIMED_KS = (16, 32, 64)
 
 
@@ -1170,10 +1257,12 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
     - on the cell graph at k in GATHER_TIMED_KS (bf16 values): K5 against
       K2 on the expanded operand (the dense baseline), the expansion chain
       (spgemm_forward_cbsr with the flag off), torch.sparse.mm on the
-      expanded operand, K5's byte bound and the L2-gather model, and the
-      shared-memory wavefronts its selectors cost (counted); at k = 32,
-      the main path's shape, K5 also bit-equal to its plain version, which
-      gives the kernels line its error;
+      expanded operand, K5's byte bound and the L2-gather model, and its
+      wavefront model (k5_wavefronts: counted from the data, at the SM
+      clock nvidia-smi reported while K5 was timed); at k = 32, the main
+      path's shape, K5 also bit-equal to its plain version, which gives
+      the kernels line its error, and its pack pass equal to its plain
+      version;
     - SAGE at phase 9's cell under the flag: 5 steps and an eval, K1 = K2
       = K3 = K4 = K5 = 4 a step, the first loss equal to phase 10's;
     - benchmark_graph on syn_small_d64 under the flag, validated (its f32
@@ -1182,7 +1271,9 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
     (the training and the harness, counts set to 0 just before each)."""
     from maxk_tpu_torch.bench import harness, roofline
     from maxk_tpu_torch.ops.cbsr import cbsr_expand, cbsr_topk
-    from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (spgemm_cbsr_csr,
+    from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (pack_records,
+                                                     pack_records_plain,
+                                                     spgemm_cbsr_csr,
                                                      spgemm_cbsr_plain)
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
     from maxk_tpu_torch.ops.spgemm import spgemm_forward_cbsr
@@ -1221,7 +1312,6 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
     # chain and torch.sparse.mm on the expanded operand.
     v, d, e = g.n_nodes, x_full.shape[1], g.n_edges
     sparse = torch_sparse(g)
-    in_degree = torch.bincount(g.indices.long(), minlength=v).double()
     timing = []
     for k in GATHER_TIMED_KS:
         values, selector = cbsr_topk(x_full, k)
@@ -1232,8 +1322,11 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
               f"K5 off K2 on the expansion at the cell, k={k}")
         xe32 = xe.float()
         n_bytes = (v + 1) * 8 + e * (4 + 4) + v * k * (2 + 1) + v * d * 4
-        row = {"k": k, "ms": time_ms(lambda: spgemm_cbsr_csr(g, vb, sel8,
-                                                             d)),
+        with sm_clock() as mhz:
+            k5_ms = time_ms(lambda: spgemm_cbsr_csr(g, vb, sel8, d))
+        row = {"k": k, "ms": k5_ms,
+               "wavefront_model": k5_wavefronts(g, sel8, k, 2,
+                                                statistics.median(mhz)),
                "dense_baseline_k2_ms": time_ms(lambda: spmm_csr(g, xe)),
                "expansion_chain_ms": time_ms(
                    lambda: spgemm_forward_cbsr(g, values, selector, d)),
@@ -1243,9 +1336,7 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
                "compulsory_bytes": n_bytes,
                "l2_gather_model_ms": e * 3 * k
                / roofline.H100["gather_bytes_per_s"] * 1e3,
-               "gathered_bytes": e * 3 * k,
-               "smem_wavefronts_per_edge": smem_wavefronts(selector,
-                                                           in_degree)}
+               "gathered_bytes": e * 3 * k}
         row["speedup_over_dense"] = row["dense_baseline_k2_ms"] / row["ms"]
         row["speedup_over_expansion_chain"] = (row["expansion_chain_ms"]
                                                / row["ms"])
@@ -1258,6 +1349,9 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
             cell_err = float((out - plain).abs().max())
             del plain
             row["max_abs_err_vs_plain"] = cell_err
+            check(torch.equal(pack_records(vb, sel8),
+                              pack_records_plain(vb, sel8)),
+                  "K5's pack pass off its plain version")
             row["ms_f32_values"] = time_ms(
                 lambda: spgemm_cbsr_csr(g, values, sel8, d))
             row["plain_ms"] = time_ms(

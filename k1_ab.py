@@ -39,11 +39,12 @@ from chip_smoke import check, descent_steps, emit, time_ms
 V, D, K = 131072, 256, 32
 
 
-def build(src: Path, out: Path) -> str:
-    """nvcc src into the library out; returns ptxas' -v report."""
+def build(src: Path, out: Path, flags=()) -> str:
+    """nvcc src into the library out, with the port's flags and any
+    `flags` after them; returns ptxas' -v report."""
     from maxk_tpu_torch.native.build import NVCC_FLAGS, nvcc_path
     out.parent.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(out),
                           str(src)], capture_output=True, text=True,
                          timeout=600)
     check(res.returncode == 0, f"nvcc failed for {src}:\n{res.stdout}"

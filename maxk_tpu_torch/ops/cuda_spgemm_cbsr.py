@@ -5,8 +5,8 @@ PyTorch version.
 ``(V, dim)`` product ``A @ cbsr_expand(values, selector, dim)`` of a
 ``DeviceCSR`` of V rows and a CBSR table of ``g.n_cols`` rows: ``values``
 (n_cols, k) float32 or bfloat16 and ``selector`` (n_cols, k) uint8, with
-float32 accumulation and the edge values in float32. It reads k values
-and k selectors per edge, never the expanded row. It replaces the JAX
+float32 accumulation and the edge values in float32. It reads k kept
+entries per edge, never the expanded row. It replaces the JAX
 package's CBSR-operand formulation, the XLA scan
 ``maxk_tpu/ops/spgemm.py::_spgemm_cbsr_impl`` (``CBSR_GATHER_MODE``); no
 Pallas kernel computes it.
@@ -19,11 +19,14 @@ segments' partials in segment order (``cuda_spmm.finish_plain``). So the
 two versions agree bit for bit, and both equal K2 on the expanded operand
 (``spmm_csr(g, cbsr_expand(values, selector, dim))``) up to the sign of a
 zero sum. On CUDA tensors ``spgemm_cbsr_csr`` launches
-``csrc/spgemm_cbsr.cu`` (one warp per segment, a shared-memory row per
-warp; see the source). On CPU tensors it runs ``spgemm_cbsr_plain``.
-There is no fallback between the two. It refuses ``dim > 256`` (uint8
-selectors), ``k > 128`` (the JAX package's ``_CBSR_GATHER_MAX_K``) and
-any selector type but uint8.
+``csrc/spgemm_cbsr.cu``: with bfloat16 values a pack pass that writes
+one record per kept entry (``pack_records``, whose plain version is
+``pack_records_plain``), then one warp per item of the plan's work list
+(``SegmentPlan.work``) with a shared-memory row per segment, up to four
+segments a warp at small k; see the source. On CPU tensors it runs
+``spgemm_cbsr_plain``. There is no fallback between the two. It refuses
+``dim > 256`` (uint8 selectors), ``k > 128`` (the JAX package's
+``_CBSR_GATHER_MAX_K``) and any selector type but uint8.
 """
 
 from __future__ import annotations
@@ -59,6 +62,19 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
     return (bits + torch.where(nudge, step, 0)).view(torch.float64).float()
 
 
+def pack_records_plain(values: torch.Tensor,
+                       selector: torch.Tensor) -> torch.Tensor:
+    """The kernel's records of a CBSR table with bfloat16 values: an
+    int32 ``(n, k)`` of ``bf16 bits << 16 | selector``."""
+    if values.dtype != torch.bfloat16:
+        raise ValueError(f"pack_records: need bfloat16 values, got "
+                         f"{values.dtype}")
+    rec = ((values.view(torch.int16).to(torch.int64) & 0xFFFF) << 16
+           | selector.to(torch.int64))
+    # The 32-bit pattern as a signed int32, exactly.
+    return torch.where(rec >= 2**31, rec - 2**32, rec).to(torch.int32)
+
+
 def spgemm_cbsr_plain(g: DeviceCSR, values: torch.Tensor,
                       selector: torch.Tensor, dim: int) -> torch.Tensor:
     """The plan's sums in torch ops: the j-th edge of every segment at
@@ -68,11 +84,9 @@ def spgemm_cbsr_plain(g: DeviceCSR, values: torch.Tensor,
     selectors are distinct, so no column is written twice."""
     plan = g.plan
     dev = values.device
-    lengths = torch.clamp(g.indptr[plan.seg_row.long() + 1] - plan.seg_start,
-                          max=plan.seg_len)
     # Longest first, so step j's segments are a prefix.
-    order = torch.argsort(lengths, descending=True, stable=True)
-    lengths_sorted = lengths[order].cpu()
+    order = torch.argsort(plan.seg_edges, descending=True, stable=True)
+    lengths_sorted = plan.seg_edges[order].cpu()
     seg = torch.zeros((plan.n_segments, dim), dtype=torch.float32,
                       device=dev)
     flat = seg.view(-1)
@@ -87,21 +101,25 @@ def spgemm_cbsr_plain(g: DeviceCSR, values: torch.Tensor,
 
 
 @functools.cache
-def _kernel(dtype: torch.dtype):
+def _lib():
     from maxk_tpu_torch.native.build import load
     lib = load("spgemm_cbsr")
-    fn = (lib.spgemm_cbsr_bf16 if dtype == torch.bfloat16
-          else lib.spgemm_cbsr_f32)
-    fn.argtypes = ([ctypes.c_void_p] * 10
-                   + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int64]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    for name in ("bf16", "f32"):
+        fn = getattr(lib, f"spgemm_cbsr_{name}")
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                       + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.spgemm_cbsr_pack_bf16.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.spgemm_cbsr_pack_bf16.restype = ctypes.c_int
+    return lib
 
 
-def _check(g: DeviceCSR, values: torch.Tensor, selector: torch.Tensor,
-           dim: int) -> None:
+def _check_table(values: torch.Tensor, selector: torch.Tensor) -> None:
     if values.dim() != 2 or values.dtype not in (torch.float32,
                                                  torch.bfloat16):
         raise ValueError(f"spgemm_cbsr: need 2-D float32 or bfloat16 "
@@ -111,6 +129,44 @@ def _check(g: DeviceCSR, values: torch.Tensor, selector: torch.Tensor,
         raise ValueError(f"spgemm_cbsr: need a uint8 selector of values' "
                          f"shape {tuple(values.shape)}, got "
                          f"{tuple(selector.shape)} {selector.dtype}")
+    if values.device != selector.device:
+        raise ValueError(f"spgemm_cbsr: values on {values.device}, "
+                         f"selector on {selector.device}")
+    if values.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spgemm_cbsr: unsupported device {values.device}")
+    if values.device.type == "cuda" and not (values.is_contiguous()
+                                             and selector.is_contiguous()):
+        raise ValueError("spgemm_cbsr kernel: values and selector must be "
+                         "contiguous")
+
+
+def pack_records(values: torch.Tensor,
+                 selector: torch.Tensor) -> torch.Tensor:
+    """``pack_records_plain``'s records; on CUDA tensors by the pack
+    kernel that ``spgemm_cbsr_csr`` runs first on bfloat16 values
+    (launched alone here, for its check)."""
+    _check_table(values, selector)
+    if values.device.type == "cpu" or values.dtype != torch.bfloat16:
+        return pack_records_plain(values, selector)   # raises on float32
+    records = torch.empty(values.shape, dtype=torch.int32,
+                          device=values.device)
+    with torch.cuda.device(values.device):
+        err = _lib().spgemm_cbsr_pack_bf16(
+            values.data_ptr(), selector.data_ptr(), values.numel(),
+            records.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spgemm_cbsr pack kernel launch failed: CUDA "
+                           f"error {err}")
+    pack_records.launches += 1
+    return records
+
+
+pack_records.launches = 0
+
+
+def _check(g: DeviceCSR, values: torch.Tensor, selector: torch.Tensor,
+           dim: int) -> None:
+    _check_table(values, selector)
     k = values.shape[1]
     if not 1 <= dim <= MAX_DIM or not 1 <= k <= min(MAX_K, dim):
         raise ValueError(f"spgemm_cbsr: need dim <= {MAX_DIM} and "
@@ -127,10 +183,10 @@ def _check(g: DeviceCSR, values: torch.Tensor, selector: torch.Tensor,
         raise ValueError("spgemm_cbsr: the graph has no segment plan; "
                          "build it with DeviceCSR.from_csr")
     if not (g.indptr.device == g.indices.device == g.values.device
-            == g.plan.seg_row.device == values.device == selector.device):
+            == g.plan.seg_row.device == values.device):
         raise ValueError(f"spgemm_cbsr: graph on {g.device}, plan on "
                          f"{g.plan.seg_row.device}, values on "
-                         f"{values.device}, selector on {selector.device}")
+                         f"{values.device}")
 
 
 def spgemm_cbsr_csr(g: DeviceCSR, values: torch.Tensor,
@@ -141,31 +197,30 @@ def spgemm_cbsr_csr(g: DeviceCSR, values: torch.Tensor,
     _check(g, values, selector, dim)
     if values.device.type == "cpu":
         return spgemm_cbsr_plain(g, values, selector, dim)
-    if values.device.type != "cuda":
-        raise ValueError(f"spgemm_cbsr: unsupported device {values.device}")
-    for name, t in (("values", values), ("selector", selector),
-                    ("indptr", g.indptr), ("indices", g.indices),
-                    ("vals", g.values)):
+    for name, t in (("indices", g.indices), ("vals", g.values)):
         if not t.is_contiguous():
             raise ValueError(f"spgemm_cbsr kernel: {name} must be "
                              f"contiguous")
     plan = g.plan
-    out = torch.empty((g.n_nodes, dim), dtype=torch.float32,
-                      device=values.device)
+    dev = values.device
+    out = torch.empty((g.n_nodes, dim), dtype=torch.float32, device=dev)
     if g.n_nodes == 0:
         return out
     partials = torch.empty((plan.n_partials, dim), dtype=torch.float32,
-                           device=values.device)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(values.dtype)(
-            g.indptr.data_ptr(), g.indices.data_ptr(), g.values.data_ptr(),
-            values.data_ptr(), selector.data_ptr(), out.data_ptr(),
-            partials.data_ptr(), plan.seg_row.data_ptr(),
-            plan.seg_start.data_ptr(), plan.seg_slot.data_ptr(),
-            plan.n_segments, plan.seg_len, plan.fin_row.data_ptr(),
-            plan.fin_ptr.data_ptr(), plan.fin_row.shape[0],
-            values.shape[1], dim, stream)
+                           device=dev)
+    bf16 = values.dtype == torch.bfloat16
+    # The pack pass's records (bfloat16 values only).
+    records = (torch.empty(values.shape, dtype=torch.int32, device=dev)
+               if bf16 else None)
+    with torch.cuda.device(dev):
+        err = (_lib().spgemm_cbsr_bf16 if bf16 else _lib().spgemm_cbsr_f32)(
+            g.indices.data_ptr(), g.values.data_ptr(), values.data_ptr(),
+            selector.data_ptr(), values.shape[0],
+            records.data_ptr() if bf16 else None,
+            plan.work.data_ptr(), plan.n_segments, out.data_ptr(),
+            partials.data_ptr(), plan.fin_row.data_ptr(),
+            plan.fin_ptr.data_ptr(), plan.fin_row.shape[0], values.shape[1],
+            dim, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spgemm_cbsr kernel launch failed: CUDA error "
                            f"{err}")

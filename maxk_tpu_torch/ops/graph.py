@@ -11,6 +11,7 @@ have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -164,11 +165,14 @@ class SegmentPlan:
     row of a workspace, and a second pass sums them in segment order.
     That pass also writes the zero-degree rows, which have no segment,
     as zeros: they are its rows with an empty range of partials.
+    K5 (``csrc/spgemm_cbsr.cu``) takes the same segments longest first
+    (``work``).
     """
 
     seg_len: int
     seg_row: torch.Tensor     # (n_seg,) int32, in row order
     seg_start: torch.Tensor   # (n_seg,) int64, first edge of the segment
+    seg_edges: torch.Tensor   # (n_seg,) int32, its edges (<= seg_len)
     seg_slot: torch.Tensor    # (n_seg,) int32, its partials row, or -1
     fin_row: torch.Tensor     # (n_fin,) int32: split rows, then empty rows
     fin_ptr: torch.Tensor     # (n_fin+1,) int64 ranges of partials rows
@@ -186,6 +190,7 @@ class SegmentPlan:
         # warp4's loc is int32; the start is recomputed in int64 so that
         # E may pass 2**31.
         start = csr.indptr[row] + (np.arange(n_seg) - first[row]) * seg_len
+        edges = np.minimum(csr.indptr[row + 1] - start, seg_len)
         split = per_row > 1
         in_split = split[row]
         slot = np.full(n_seg, -1, np.int32)
@@ -202,13 +207,28 @@ class SegmentPlan:
 
         return SegmentPlan(
             seg_len=seg_len, seg_row=dev(row, np.int32),
-            seg_start=dev(start, np.int64), seg_slot=dev(slot, np.int32),
+            seg_start=dev(start, np.int64),
+            seg_edges=dev(edges, np.int32), seg_slot=dev(slot, np.int32),
             fin_row=dev(fin_row, np.int32), fin_ptr=dev(fin_ptr, np.int64),
             n_partials=int(fin_ptr[-1]))
 
     @property
     def n_segments(self) -> int:
         return int(self.seg_row.shape[0])
+
+    @functools.cached_property
+    def work(self) -> torch.Tensor:
+        """K5's work list, built once per plan: (n_seg, 2) int64, the
+        segments longest first (ties in plan order), each as its first
+        edge and ``edges << 32 | dst``, where dst (32 bits) is its output
+        row, or -1 - its partials row for a segment of a split row."""
+        order = torch.argsort(self.seg_edges, descending=True, stable=True)
+        slot = self.seg_slot[order].long()
+        dst = torch.where(slot < 0, self.seg_row[order].long(), -1 - slot)
+        return torch.stack(
+            [self.seg_start[order],
+             self.seg_edges[order].long() << 32 | dst & 0xFFFFFFFF],
+            1).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,7 +19,10 @@ row's sum, 2 n_r 2**-24 sum_e |v_e x_e|, since the star row sums
 hundreds of terms. K2 is bit-for-bit deterministic: two calls give the
 same bits. K5 equals its plain version and K2 on the expanded operand
 (torch.equal: all three sum each column in edge order with one rounding
-per term), and two calls give the same bits.
+per term), and two calls give the same bits, at every k where its
+dispatch changes, on graphs with an odd number of segments, a zero-degree
+row between split rows, and tens of thousands of segments; its pack pass
+equals its plain version.
 """
 
 import dataclasses
@@ -31,7 +34,9 @@ import torch
 from maxk_tpu_torch.ops.cbsr import cbsr_expand
 from maxk_tpu_torch.ops.cuda_gather import (cbsr_gather_forward,
                                             cbsr_gather_plain)
-from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (spgemm_cbsr_csr,
+from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (pack_records,
+                                                 pack_records_plain,
+                                                 spgemm_cbsr_csr,
                                                  spgemm_cbsr_plain)
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
 from maxk_tpu_torch.ops.cuda_topk import (WIDE_SMEM_CAP, cbsr_topk_forward,
@@ -306,15 +311,45 @@ def test_k2_refuses_graph_without_plan(cuda_device):
     assert spmm_csr.launches == before
 
 
+def _ragged_graph(kind, seg_len):
+    """Graphs whose ends K5's schedule must meet: 'odd_segments' (7
+    segments: rows of 3 seg_len + 1, 5, 2 and 1 edges), 'gap' (split rows
+    2 and 4 of 2 seg_len + 3 edges, zero-degree row 3 between them, a few
+    short rows) and 'many' (8192 rows of ~48 edges: ~51,000 segments,
+    many waves of blocks)."""
+    rng = np.random.default_rng(3)
+    if kind == "odd_segments":
+        n, lens = 16, {1: 3 * seg_len + 1, 5: 5, 9: 2, 12: 1}
+    elif kind == "gap":
+        n, lens = 64, {2: 2 * seg_len + 3, 4: 2 * seg_len + 3}
+    else:
+        n, lens = 8192, {}
+    src = np.concatenate([np.full(m, r) for r, m in lens.items()]
+                         + [rng.integers(8, n // 2, 48 * n if kind == "many"
+                                         else n // 4 * (kind == "gap"))])
+    dst = rng.integers(0, n, len(src)).astype(np.int32)
+    vals = rng.uniform(size=len(src)).astype(np.float32)
+    return CSRGraph.from_coo(src.astype(np.int64), dst, n, vals)
+
+
+# K5's dispatch boundaries (8 lanes a segment up to k = 8, 16 up to 16,
+# then 32 lanes with 1-4 entries each), each with a D that also takes
+# the scalar flush where D % 4 != 0.
+K5_SHAPES = [(1, 64), (7, 63), (8, 64), (9, 200), (15, 199), (16, 200),
+             (17, 64), (31, 33), (32, 256), (33, 101), (63, 64), (64, 256),
+             (65, 66), (128, 256)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,d", [(1, 64), (7, 64), (16, 200), (32, 256),
-                                 (64, 256), (128, 256)])
-@pytest.mark.parametrize("kind", ["star", "boundary"])
+@pytest.mark.parametrize("k,d", K5_SHAPES)
+@pytest.mark.parametrize("kind", ["star", "boundary", "odd_segments", "gap",
+                                  "many"])
 def test_k5_equals_plain_and_k2_on_expansion(cuda_device, kind, k, d,
                                              dtype):
     """K5 sums each column in edge order with fmaf, as its plain version
     and as K2 on the expanded operand do: equal as values (+-0 aside)."""
-    csr = _split_graph(kind, 8)
+    csr = (_split_graph(kind, 8) if kind in ("star", "boundary")
+           else _ragged_graph(kind, 8))
     g = DeviceCSR.from_csr(csr, cuda_device, seg_len=8)
     x = _x("normal", csr.n_nodes, d, seed=k).to(cuda_device)
     values, selector = cbsr_topk_forward(x, k)
@@ -324,6 +359,17 @@ def test_k5_equals_plain_and_k2_on_expansion(cuda_device, kind, k, d,
     assert torch.equal(out, spmm_csr(g, cbsr_expand(values, selector, d)))
     assert torch.equal(out.view(torch.int32),
                        spgemm_cbsr_csr(g, values, sel8, d).view(torch.int32))
+    empty = torch.diff(g.indptr) == 0
+    assert torch.all(out[empty] == 0)
+
+
+@pytest.mark.parametrize("k", [1, 7, 32, 128])
+def test_k5_pack_kernel_equals_plain(cuda_device, k):
+    x = _x("normal", 1000, 256, seed=k).to(cuda_device)
+    values, selector = cbsr_topk_forward(x, k)
+    values, sel8 = values.to(torch.bfloat16), selector.to(torch.uint8)
+    assert torch.equal(pack_records(values, sel8),
+                       pack_records_plain(values, sel8))
 
 
 def test_launch_counters_count_kernel_launches(cuda_device):

@@ -3,13 +3,17 @@
 
   JAX_PLATFORMS=cpu python golden_spread.py --model gnn_res \\
       [--seeds 97-112] [--procs 4] [--dropout-offset N] \\
+      [--nonlinear maxk|relu] [--k 32] [--metric micro_f1|rocauc] \\
       [--engine jax | torch [--device cpu|cuda] | torch-jax-init]
   JAX_PLATFORMS=cpu python golden_spread.py --model gnn_res --lockstep 103
 
 Runs the golden synthetic recipe (``tools/golden_accuracy.py``'s ``Cfg``:
 3x64, dropout 0.2, norm, float32, Adam 0.01, eval every 5, patience 10,
 on ``chip_smoke.GOLDEN_DATASET``) with MaxK k=32 once per init seed,
-``--procs`` seeds at a time in separate processes:
+``--procs`` seeds at a time in separate processes. ``--nonlinear``, ``--k``
+and ``--metric`` choose another row of the recipe: relu, another k, or the
+multilabel dataset (``MULTILABEL_DATASET`` of
+``maxk_tpu_torch/tools/golden_accuracy.py``) scored by micro-F1 or rocauc:
 
 - ``jax``: ``maxk_tpu.train.loop.Trainer`` on the CPU;
 - ``torch``: the port's run that ``chip_smoke.py`` makes on the card
@@ -53,16 +57,22 @@ def _jax_env():
     return jax
 
 
-def _jax_trainer(model: str, init_seed: int, path: str, **cfg):
-    """The reference's golden Trainer and its init state for
-    `init_seed`."""
+def _jax_trainer(model: str, init_seed: int, path: str,
+                 nonlinear: str = "maxk", k: int = 32, metric=None, **cfg):
+    """The reference's golden Trainer for the row (model, nonlinear, k,
+    metric) and its init state for `init_seed`."""
     _jax_env()
     from chip_smoke import GOLDEN_DATASET
     from golden_accuracy import Cfg
-    from maxk_tpu.data.datasets import make_synthetic_dataset
+    from maxk_tpu.data.datasets import (make_synthetic_dataset,
+                                        make_synthetic_multilabel_dataset)
     from maxk_tpu.train.loop import Trainer
-    trainer = Trainer(Cfg(model=model, nonlinear="maxk", maxk=32, path=path,
-                          **cfg), make_synthetic_dataset(**GOLDEN_DATASET))
+    from maxk_tpu_torch.tools.golden_accuracy import MULTILABEL_DATASET
+    ds = (make_synthetic_dataset(**GOLDEN_DATASET) if metric is None else
+          make_synthetic_multilabel_dataset(**MULTILABEL_DATASET,
+                                            metric=metric))
+    trainer = Trainer(Cfg(model=model, nonlinear=nonlinear, maxk=k or 32,
+                          path=path, **cfg), ds)
     return trainer, trainer.init_state(seed=init_seed)
 
 
@@ -75,11 +85,12 @@ def _load_jax_init(port_model, state) -> None:
         if state.batch_stats else None)
 
 
-def run_jax(model: str, seed: int, offset: int) -> dict:
+def run_jax(model: str, seed: int, offset: int, row: dict) -> dict:
     """One golden run of the JAX reference, in this process."""
     with tempfile.TemporaryDirectory() as tmp:
         # The fit draws its dropout bits from cfg.seed + 1.
-        trainer, state = _jax_trainer(model, seed, tmp, seed=seed + offset)
+        trainer, state = _jax_trainer(model, seed, tmp, **row,
+                                      seed=seed + offset)
         res = trainer.fit(state=state)
     return dict(model=model, seed=seed, best_val=res.best_val,
                 best_test=res.best_test, best_epoch=res.best_epoch,
@@ -87,7 +98,7 @@ def run_jax(model: str, seed: int, offset: int) -> dict:
 
 
 def run_torch(model: str, seed: int, device: str, threads: int,
-              offset: int, jax_init: bool) -> dict:
+              offset: int, jax_init: bool, row: dict) -> dict:
     """One golden run of the port, in this process."""
     sys.path[:0] = [str(REPO)]
     import torch
@@ -98,10 +109,10 @@ def run_torch(model: str, seed: int, device: str, threads: int,
         if jax_init:
             with tempfile.TemporaryDirectory() as tmp:
                 _load_jax_init(trainer.model,
-                               _jax_trainer(model, seed, tmp)[1])
+                               _jax_trainer(model, seed, tmp, **row)[1])
         trainer.generator.manual_seed(seed + offset + 1)
 
-    return golden_run(model, seed, device, prepare)
+    return golden_run(model, seed, device, prepare, **row)
 
 
 def _val_batch_stats(trainer) -> float:
@@ -187,6 +198,10 @@ def main() -> int:
     ap.add_argument("--device", default="cpu",
                     help="the port's device (--engine torch)")
     ap.add_argument("--dropout-offset", type=int, default=0)
+    ap.add_argument("--nonlinear", default="maxk", choices=["maxk", "relu"])
+    ap.add_argument("--k", type=int, default=32, help="MaxK's k (maxk)")
+    ap.add_argument("--metric", default=None, choices=["micro_f1", "rocauc"],
+                    help="the multilabel dataset, scored by this metric")
     ap.add_argument("--lockstep", type=int, metavar="SEED")
     args = ap.parse_args()
     if args.lockstep is not None:
@@ -194,15 +209,18 @@ def main() -> int:
         return 0
     first, last = (int(s) for s in args.seeds.split("-"))
     seeds = range(first, last + 1)
+    row = dict(nonlinear=args.nonlinear,
+               k=args.k if args.nonlinear == "maxk" else 0,
+               metric=args.metric)
     if args.engine == "jax":
-        fn, jobs = run_jax, [(args.model, s, args.dropout_offset)
+        fn, jobs = run_jax, [(args.model, s, args.dropout_offset, row)
                              for s in seeds]
     else:
         threads = max(1, (os.cpu_count() or 1) // args.procs)
         device = args.device if args.engine == "torch" else "cpu"
         fn, jobs = run_torch, [(args.model, s, device, threads,
                                 args.dropout_offset,
-                                args.engine == "torch-jax-init")
+                                args.engine == "torch-jax-init", row)
                                for s in seeds]
     sys.path[:0] = [str(REPO)]
     from chip_smoke import GOLDEN_TAIL
@@ -213,7 +231,7 @@ def main() -> int:
             runs.append(run)
     tests = [r["best_test"] for r in runs]
     print(json.dumps(dict(
-        model=args.model, engine=args.engine, seeds=args.seeds,
+        model=args.model, **row, engine=args.engine, seeds=args.seeds,
         dropout_offset=args.dropout_offset,
         device=args.device if args.engine == "torch" else "cpu",
         mean_best_test=statistics.mean(tests),

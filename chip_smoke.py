@@ -33,8 +33,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  the wide kernel runs, with its launches
   9 train        SAGE 4x256, k=32, bf16 compute, on the 131072-node
                  synthetic graph: 5 steps and one eval; launch counts
- 10 train_cbsr   the same on the CBSR route: launch counts per step, the
-                 first loss vs phase 9's
+ 10 train_cbsr   the same on the CBSR route: launch counts per step (K6
+                 expands the forward's operand and the backward's
+                 gradient), the first loss vs phase 9's
  11 accuracy     the golden synthetic recipe's mean best_test over 16
                  init seeds vs 0.9847 (phases 11, 16 and 21 run GOLDEN_PROCS
                  seeds at a time, each in a process of its own)
@@ -122,7 +123,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  bytes, roofline audit and bound beside torch.sparse.mm;
                  K2's rows past edge 2**31 / D held to a float64 sum and K1
                  bit-equal to its plain version at V rows (32-bit index
-                 widths); 3 steps by op group under torch.profiler
+                 widths); 3 steps by op group under torch.profiler; K7
+                 timed at both scale modes and slab widths beside K2,
+                 its rows past edge 2**31 / D held to a float64 sum; the
+                 same measurement under --compute_dtype int8 on the same
+                 graphs (train_bench.measure: K1 = 4, K7 = 8 a step)
  21 golden_rows  the golden rows the card had not checked (SAGE k = 8, 16,
                  64; relu for SAGE, GCN, GIN, GNN_res; the four multilabel
                  rows), 8 init seeds each through the pool, each mean at or
@@ -130,6 +135,28 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  alone in the relu rows; python -m
                  maxk_tpu_torch.tools.golden_accuracy --only-multilabel as
                  a subprocess, its closing line checked
+ 22 k6           K6 (cbsr_expand) bit-equal to its plain version: f32 and
+                 bf16 values and outputs, k = 1, 8, 32, 64, 128, D = 61,
+                 256, 2048, and its int8 row-scale mode at D = 256 (int32
+                 and uint8 selectors); timed at the cell (k = 32, f32)
+                 beside its plain version, scatter_ and its byte bound,
+                 and the routes' conversions and the int8 mode
+ 23 k7           K7 (the int8 SpMM) against its plain version, both scale
+                 modes and slab widths, on phase 5's small and
+                 split-boundary graphs and the cell (its rows past edge
+                 2**31 / D among them): rtol 1e-5 and each row's two-order
+                 bound; timed at the cell beside K2 at bf16, the whole
+                 "int8" spmm, torch.sparse.mm on the dequantized table,
+                 its bound and roofline audit at one byte a column
+ 24 paths        at the cell, full width: SAGE under compute_dtype="int8"
+                 (K1 = 4, K7 = 8 a step); maxk_spgemm under
+                 "int8_rowscale" (forward K4, K6's int8 mode, K7;
+                 backward K2, K3, K6), held to the dense f32 product at
+                 the JAX test's bounds and to its plain composition, dx
+                 the CBSR route's; MAXK_HUB_AUTO=1's hub split (H, slab
+                 MB), an f32 maxk_spgemm and dx held to the hub-free
+                 graph's, 5 SAGE steps on each route, first losses within
+                 rtol 1e-4 of the hub-free ones
 Each new phase prints its seconds. The kernels line comes last but two.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing any result.
@@ -203,6 +230,8 @@ OP_GROUPS = (
     ("K4", ("cbsr_topk_kernel",)),
     ("K5", ("spgemm_cbsr_kernel", "spgemm_cbsr_pack_kernel",
             "spgemm_cbsr_finish_kernel")),
+    ("K6", ("cbsr_expand_kernel",)),
+    ("K7", ("spmm_int8_segment_kernel", "spmm_int8_finish_kernel")),
     ("wide", ("topk_wide_kernel",)),
     ("GEMM", ("gemm", "gemv", "nvjet", "splitKreduce", "cutlass")),
     ("LayerNorm", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -245,6 +274,14 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def k7_bound(v: int, e: int, d: int, row_scale: bool):
+    """K7's bound: the int8 table, its scales, the CSR arrays and the
+    float32 out moved once each; 2 E D operations."""
+    n_bytes = (v * d + (v if row_scale else d) * 4 + (v + 1) * 8 + e * 8
+               + v * d * 4)
+    return bound_ms(n_bytes, 2 * e * d)
 
 
 def torch_sparse(g):
@@ -725,12 +762,12 @@ def op_breakdown(kernels: list, n_steps: int, top: int = 15) -> dict:
 
 
 # What one call of each harness column launches (phase 17): the CBSR
-# forward is the expansion then K2, the backward K2 then K3, the mask
+# forward is the expansion (K6) then K2, the backward K2 then K3, the mask
 # route's forward K1 then K2; COO and GNNA are torch ops.
 HARNESS_COLUMNS = {
     "baseline_spmm": {"k2": 1}, "coo_spmm": {}, "gnna_sag": {},
-    "topk": {"k4": 1}, "maxk": {"k2": 1}, "maxk_fused_mask": {"k1": 1,
-                                                              "k2": 1},
+    "topk": {"k4": 1}, "maxk": {"k2": 1, "k6": 1},
+    "maxk_fused_mask": {"k1": 1, "k2": 1},
     "baseline_spmm_T": {"k2": 1}, "maxk_backward": {"k2": 1, "k3": 1}}
 
 
@@ -895,11 +932,12 @@ def harness_phase(cell_csr, counted: dict, k4_ms: float) -> dict:
     return launches
 
 
-# What one rank of phase 18 launches a step, by kernel id.
+# What one rank of phase 18 launches a step, by kernel id: SAGE's CBSR
+# wire expands the table (K6) forward and the sampled gradient backward.
 DIST_SAGE_STEP = {"k1": 4, "k2": 8, "k3": 4, "k4": 4, "k5": 0, "k1_wide": 0,
-                  "k4_wide": 0}
+                  "k4_wide": 0, "k6": 8, "k6_int8": 0, "k7": 0}
 DIST_GCN_STEP = {"k1": 4, "k2": 8, "k3": 0, "k4": 0, "k5": 0, "k1_wide": 0,
-                 "k4_wide": 0}
+                 "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0}
 # The families phase 18 runs on 2 ranks: SAGE, and those of the dense
 # exchange (GCN; GNN_res, whose BatchNorm sums over the ranks).
 DIST_RUNS = (("sage", 5, DIST_SAGE_STEP), ("gcn", 2, DIST_GCN_STEP),
@@ -1381,7 +1419,8 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
     with gather_mode():
         steps, launches, peak = train(
             {"k1": n_layers, "k2": n_layers, "k3": n_layers,
-             "k4": n_layers, "k5": n_layers, "k1_wide": 0, "k4_wide": 0})
+             "k4": n_layers, "k5": n_layers, "k1_wide": 0, "k4_wide": 0,
+             "k6": n_layers, "k6_int8": 0, "k7": 0})
     check(steps[0]["loss"] == cbsr_first_loss,
           f"first loss under the flag {steps[0]['loss']} != phase 10's "
           f"{cbsr_first_loss}")
@@ -1436,7 +1475,9 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
 REDDIT_V = 232965
 REDDIT_E = 114618780
 REDDIT_STEP = {"k1": 4, "k2": 8, "k3": 0, "k4": 0, "k5": 0, "k1_wide": 0,
-               "k4_wide": 0}
+               "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0}
+# The same step under --compute_dtype int8: K7 in K2's place.
+REDDIT_INT8_STEP = {**REDDIT_STEP, "k2": 0, "k7": 8}
 
 
 def reddit_device(ready, results) -> None:
@@ -1454,7 +1495,12 @@ def reddit_device(ready, results) -> None:
       rows, where an index computed as edge x D or row x D in 32 bits
       would overflow;
     - runs a warm-up step and 3 steps under torch.profiler, every count
-      set to 0 first, and checks that the trace holds every launch.
+      set to 0 first, and checks that the trace holds every launch;
+    - times K7 (the int8 SpMM) on the same graph, both scale modes and
+      slab widths, beside K2, with its roofline audit at one byte a
+      column, and holds its rows past edge 2**31 / D to a float64 sum;
+    - runs train_bench's measurement (``measure``) under --compute_dtype
+      int8 on the same dataset and graphs: K1 = 4, K7 = 8 a step.
     Puts a dict of the results, or {"error": traceback}, on `results`."""
     try:
         results.put(_reddit_device(ready))
@@ -1467,10 +1513,13 @@ def _reddit_device(ready) -> dict:
     from torch import profiler
 
     from maxk_tpu_torch.bench.roofline import audit_spmm, stream_bytes
-    from maxk_tpu_torch.bench.train_bench import (bench_config, parse_args,
-                                                  reddit_dataset)
+    from maxk_tpu_torch.bench.train_bench import (bench_config, measure,
+                                                  parse_args, reddit_dataset)
+    from maxk_tpu_torch.ops.cbsr import cbsr_expand_int8, cbsr_topk
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
+    from maxk_tpu_torch.ops.cuda_spmm_int8 import SLAB, spmm_int8_csr
     from maxk_tpu_torch.ops.cuda_topk import maxk_forward, maxk_forward_plain
+    from maxk_tpu_torch.ops.spmm import quantize_columns
     from maxk_tpu_torch.train.loop import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1483,7 +1532,8 @@ def _reddit_device(ready) -> dict:
     t0 = time.perf_counter()
     tr = Trainer(bench_config(parse_args([])), ds)
     trainer_s = time.perf_counter() - t0
-    g, v, e, d = tr.graphs.g_mean, ds.csr.n_nodes, ds.csr.n_edges, 256
+    graphs = tr.graphs
+    g, v, e, d = graphs.g_mean, ds.csr.n_nodes, ds.csr.n_edges, 256
     gen = torch.Generator(device=dev).manual_seed(20)
 
     # K2 alone, on the bf16 operand the step hands it.
@@ -1519,8 +1569,45 @@ def _reddit_device(ready) -> dict:
     check(torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
           and torch.equal(m, m_ref),
           f"K1 differs from its plain version at V={v}")
-    del x, x16, out16, y, m, y_ref, m_ref
+    del x16, out16, y, m, y_ref, m_ref
     k2_s = time.perf_counter() - t0
+
+    # K7 on the same graph: the per-column table of x, and the per-row
+    # table of its k = 32 CBSR rows; each scale mode at both slab widths.
+    t0 = time.perf_counter()
+    q, scale = quantize_columns(x)
+    values, selector = cbsr_topk(x, 32)
+    q_r, s_r = cbsr_expand_int8(values, selector, d)
+    del values, selector
+    k7 = {"slab": SLAB, "k2_bf16_ms": k2_ms}
+    for mode, (qq, ss, row) in (("column", (q, scale, False)),
+                                ("row", (q_r, s_r, True))):
+        for slab in (128, 256):
+            ms = time_ms(lambda: spmm_int8_csr(g, qq, ss, row, slab))
+            k7[f"{mode}_slab{slab}_ms"] = ms
+        ms = k7[f"{mode}_slab{SLAB}_ms"]
+        k7[f"{mode}_roofline"] = dataclasses.asdict(audit_spmm(
+            v, e, d, ms, g.plan, value_bytes=1, x_in_bytes=4, scale=mode))
+        k7[f"{mode}_bound"] = k7_bound(v, e, d, row)
+    k7["gathered_bytes_column"] = e * d
+    k7["gathered_tb_per_s_column"] = e * d / k7[f"column_slab{SLAB}_ms"] / 1e9
+    # Rows past edge 2**31 / D, as K2's above, under the column scale.
+    out8 = spmm_int8_csr(g, q, scale, False)
+    k7_widths = {}
+    for r in widths:
+        lo, hi = int(g.indptr[r]), int(g.indptr[r + 1])
+        terms = (g.values[lo:hi].double()[:, None]
+                 * q[g.indices[lo:hi].long()].double()) * scale.double()
+        bound = 2 * (hi - lo + 1) * 2.0 ** -24 * terms.abs().sum(0)
+        ratio = float(((out8[r].double() - terms.sum(0)).abs()
+                       / bound.clamp_min(1e-30)).max())
+        k7_widths[r] = ratio
+        check(ratio <= 1.0, f"K7 row {r} (edges {lo}..{hi}) off its float64 "
+                            f"sum: error/bound {ratio}")
+        del terms, bound
+    k7["rows_past_2_31_over_d_err_over_sum_bound"] = k7_widths
+    del x, q, scale, q_r, s_r, out8
+    k7_s = time.perf_counter() - t0
 
     # A warm-up step, then 3 steps traced, every count set to 0 first.
     t0 = time.perf_counter()
@@ -1545,6 +1632,18 @@ def _reddit_device(ready) -> dict:
                 for group in ("K1", "K2")}
     check(in_trace == {"K1": 4 * n_prof, "K2": 8 * n_prof},
           f"the trace holds {in_trace} of K1's and K2's launches")
+    profile_s = time.perf_counter() - t0
+
+    # train_bench's measurement under --compute_dtype int8, on the same
+    # dataset and device graphs.
+    t0 = time.perf_counter()
+    del tr
+    int8 = measure(parse_args(["--compute_dtype", "int8"]), ds, dev,
+                   graph_s, graphs=graphs)
+    check(int8["launches_per_step"] == REDDIT_INT8_STEP,
+          f"the reddit int8 steps launched {int8['launches_per_step']} a "
+          f"step, not {REDDIT_INT8_STEP}")
+    check(math.isfinite(int8["loss"]), f"int8 loss {int8['loss']}")
     return dict(
         V=v, E=e, max_degree=int(deg.max()),
         k2={"ms": k2_ms, "gathered_bytes": e * d * 2,
@@ -1555,12 +1654,13 @@ def _reddit_device(ready) -> dict:
             "torch_sparse_f32_ms": lib_ms, "segments": g.plan.n_segments,
             "partials_rows": g.plan.n_partials},
         index_widths={"k2_rows": widths, "k1_bit_equal_at_V": v},
-        profile=op_breakdown(traced, n_prof), steps_traced=n_prof,
-        launches=launches,
+        k7=k7, profile=op_breakdown(traced, n_prof), steps_traced=n_prof,
+        launches=launches, int8_bench=int8,
         seconds={"graph_build": round(graph_s, 3),
                  "trainer_build": round(trainer_s, 3),
-                 "k2_and_widths": round(k2_s, 3),
-                 "profile": round(time.perf_counter() - t0, 3)})
+                 "k2_and_widths": round(k2_s, 3), "k7": round(k7_s, 3),
+                 "profile": round(profile_s, 3),
+                 "int8_bench": round(time.perf_counter() - t0, 3)})
 
 
 def reddit_phase() -> dict:
@@ -1611,9 +1711,12 @@ def reddit_phase() -> dict:
     emit("train_bench", cli=bench, cli_seconds=round(cli_s, 3),
          config="sage 4x256 maxk k=32 norm dropout=0.5 bf16, reddit shape",
          **own, phase_seconds=round(time.perf_counter() - t0, 3))
-    cli_steps = len(bench["train_steps_ms"])
+    int8 = own["int8_bench"]
     return {n: own["launches"][n]
-            + round(bench["launches_per_step"][n] * cli_steps)
+            + round(bench["launches_per_step"][n]
+                    * len(bench["train_steps_ms"]))
+            + round(int8["launches_per_step"][n]
+                    * len(int8["train_steps_ms"]))
             for n in REDDIT_STEP}
 
 
@@ -1671,6 +1774,381 @@ def golden_rows_phase() -> dict:
     for row in rows.values():
         check_golden(row)
     return launches
+
+
+# Phase 22's checks of K6: k and D where its passes and stores change.
+EXPAND_KS = (1, 8, 32, 64, 128)
+EXPAND_DIMS = (61, 256, 2048)
+
+
+def k6_phase(x_full, gen) -> dict:
+    """Phase 22: K6 (cbsr_expand, csrc/cbsr_expand.cu).
+
+    - bit-equal to its plain version (scatter_ into zeros) on 16384 rows:
+      float32 and bfloat16 values, out float32 and bfloat16, k in
+      EXPAND_KS (k <= D) and D in EXPAND_DIMS (61: element stores; 2048:
+      two passes); its int8 row-scale mode at D = 256 against
+      cbsr_expand_int8_plain (q and scale bit-equal), int32 and uint8
+      selectors;
+    - at the cell (phase 9's x, k = 32, float32): K6's time against its
+      plain version and scatter_, and its byte bound; the routes'
+      conversions (float32 values into a bfloat16 operand, the forward's;
+      bfloat16 into float32, the backward's) and the int8 mode, each
+      beside its bound.
+    Returns the kernels line's numbers for both entries."""
+    from maxk_tpu_torch.ops.cuda_expand import (cbsr_expand_forward,
+                                                cbsr_expand_int8,
+                                                cbsr_expand_int8_plain,
+                                                cbsr_expand_plain)
+    from maxk_tpu_torch.ops.cuda_topk import cbsr_topk_forward
+    t0 = time.perf_counter()
+    dev = x_full.device
+    rows = 16384
+    cases = []
+    for d in EXPAND_DIMS:
+        x = torch.randn(rows, d, device=dev, generator=gen)
+        for k in (k for k in EXPAND_KS if k <= d):
+            values, selector = cbsr_topk_forward(x, k)
+            for vt in (torch.float32, torch.bfloat16):
+                vals = values.to(vt)
+                for ot in (torch.float32, torch.bfloat16):
+                    y = cbsr_expand_forward(vals, selector, d, ot)
+                    ref = cbsr_expand_plain(vals, selector, d, ot)
+                    bits = torch.int32 if ot == torch.float32 else torch.int16
+                    check(torch.equal(y.view(bits), ref.view(bits)),
+                          f"K6 off its plain version: D={d} k={k} "
+                          f"{vt} -> {ot}")
+                    cases.append(f"D={d}:k={k}:{str(vt)[6:]}->{str(ot)[6:]}")
+    x = x_full[:rows].contiguous()
+    for k in EXPAND_KS:
+        values, selector = cbsr_topk_forward(x, k)
+        for sel in (selector, selector.to(torch.uint8)):
+            for vt in (torch.float32, torch.bfloat16):
+                q, sc = cbsr_expand_int8(values.to(vt), sel, 256)
+                q_ref, s_ref = cbsr_expand_int8_plain(values.to(vt), sel, 256)
+                check(torch.equal(q, q_ref)
+                      and torch.equal(sc.view(torch.int32),
+                                      s_ref.view(torch.int32)),
+                      f"K6's int8 mode off its plain version: k={k} "
+                      f"{sel.dtype} {vt}")
+                cases.append(f"int8:D=256:k={k}:{str(sel.dtype)[6:]}:"
+                             f"{str(vt)[6:]}")
+    del x, values, selector
+
+    v, d = x_full.shape
+    k = 32
+    values, selector = cbsr_topk_forward(x_full, k)
+    y = cbsr_expand_forward(values, selector, d)
+    check(torch.equal(y.view(torch.int32), cbsr_expand_plain(
+        values, selector, d).view(torch.int32)),
+          "K6 off its plain version at the cell")
+    sel_long = selector.long()
+    timing = {
+        "ms": time_ms(lambda: cbsr_expand_forward(values, selector, d)),
+        "plain_ms": time_ms(lambda: cbsr_expand_plain(values, selector, d),
+                            1, 5),
+        "scatter_ms": time_ms(lambda: torch.zeros_like(x_full).scatter_(
+            1, sel_long, values)),
+        "bound": bound_ms(v * k * (4 + 4) + v * d * 4, 0)}
+    values16 = values.to(torch.bfloat16)
+    conversions = {
+        "f32_to_bf16": (lambda: cbsr_expand_forward(
+            values, selector, d, torch.bfloat16), v * k * 8 + v * d * 2),
+        "bf16_to_f32": (lambda: cbsr_expand_forward(
+            values16, selector, d, torch.float32), v * k * 6 + v * d * 4),
+        "int8_rowscale": (lambda: cbsr_expand_int8(values, selector, d),
+                          v * k * 8 + v * d + v * 4)}
+    for name, (fn, n_bytes) in conversions.items():
+        ms = time_ms(fn)
+        timing[name] = {"ms": ms, "bound": bound_ms(n_bytes, 0),
+                        "share_of_bound": bound_ms(n_bytes, 0)[0] / ms}
+    q, sc = cbsr_expand_int8(values, selector, d)
+    q_ref, s_ref = cbsr_expand_int8_plain(values, selector, d)
+    check(torch.equal(q, q_ref) and torch.equal(sc, s_ref),
+          "K6's int8 mode off its plain version at the cell")
+    timing["int8_rowscale"]["plain_ms"] = time_ms(
+        lambda: cbsr_expand_int8_plain(values, selector, d), 1, 5)
+    timing["share_of_bound"] = timing["bound"][0] / timing["ms"]
+    emit("k6", checked_cases=len(cases), cases=cases, bit_equal=True,
+         cell={"V": v, "D": d, "k": k, "values": "float32"}, timing=timing,
+         seconds=round(time.perf_counter() - t0, 3))
+    del values, values16, selector, sel_long, y, q, sc, q_ref, s_ref
+    int8 = timing["int8_rowscale"]
+    return dict(err=0.0, ms=timing["ms"], plain_ms=timing["plain_ms"],
+                bound=timing["bound"], library_ms=timing["scatter_ms"],
+                int8=dict(err=0.0, ms=int8["ms"], plain_ms=int8["plain_ms"],
+                          bound=int8["bound"], library_ms=None))
+
+
+def k7_ratio(g, q, scale, row_scale, out, ref) -> float:
+    """max |out - ref| over its bound, 2 (n_r + 1) 2**-24 sum_e |w_e q_e
+    scale| (two summation orders of the row's terms, and the column
+    scale's multiply)."""
+    from maxk_tpu_torch.ops.cuda_spmm_int8 import spmm_int8_plain
+    g_abs = dataclasses.replace(g, values=g.values.abs())
+    terms = spmm_int8_plain(g_abs, q.abs(), scale.abs(), row_scale)
+    n = torch.diff(g.indptr).to(torch.float64)[:, None]
+    bound = 2 * (n + 1) * 2.0 ** -24 * terms.double()
+    diff = (out.double() - ref.double()).abs()
+    return float((diff / bound.clamp_min(1e-30)).max())
+
+
+def k7_phase(graphs: dict, g, x_full, x16) -> dict:
+    """Phase 23: K7 (the int8 SpMM, csrc/spmm_int8.cu).
+
+    - against its plain version, both scale modes (the per-column table of
+      x, the per-row table of its k = 32 CBSR rows) and both slab widths,
+      on phase 5's small and split-boundary graphs and on the cell's
+      graph, whose rows past edge 2**31 / D are among those compared:
+      within each row's two-order bound, and on the small graph and the
+      cell also within rtol 1e-5, atol 1e-5, as K2 in phase 5 (the star
+      row's 10,243 terms need the bound); zero-degree rows zero; two calls
+      bit-identical;
+    - timed at the cell: each mode and slab beside K2 at bfloat16, the
+      whole "int8" spmm (its quantization in torch ops, then K7),
+      torch.sparse.mm on the dequantized float32 table, its plain
+      version, its bound and roofline_audit at one byte a column.
+    Returns the kernels line's numbers (column scale, SLAB)."""
+    from maxk_tpu_torch.bench.roofline import audit_spmm
+    from maxk_tpu_torch.ops.cbsr import cbsr_expand_int8, cbsr_topk
+    from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
+    from maxk_tpu_torch.ops.cuda_spmm_int8 import (SLAB, spmm_int8_csr,
+                                                   spmm_int8_plain)
+    from maxk_tpu_torch.ops.spmm import quantize_columns, spmm
+    t0 = time.perf_counter()
+    d = x_full.shape[1]
+    checked, worst, cell_err = {}, 0.0, 0.0
+    for name, gs in {**graphs, "cell": g}.items():
+        x = x_full[:gs.n_nodes].contiguous()
+        values, selector = cbsr_topk(x, 32)
+        tables = {"column": (*quantize_columns(x), False),
+                  "row": (*cbsr_expand_int8(values, selector, d), True)}
+        empty = torch.diff(gs.indptr) == 0
+        for mode, (q, sc, row) in tables.items():
+            ref = spmm_int8_plain(gs, q, sc, row)
+            for slab in (128, 256):
+                out = spmm_int8_csr(gs, q, sc, row, slab)
+                again = spmm_int8_csr(gs, q, sc, row, slab)
+                if name in ("small", "cell"):
+                    # As K2 in phase 5; the star and boundary graphs' long
+                    # rows are held to their two-order bound alone.
+                    torch.testing.assert_close(out, ref, rtol=1e-5,
+                                               atol=1e-5)
+                ratio = k7_ratio(gs, q, sc, row, out, ref)
+                check(ratio <= 1.0 and bool((out[empty] == 0).all())
+                      and torch.equal(out.view(torch.int32),
+                                      again.view(torch.int32)),
+                      f"K7 off its plain version or itself: {name} {mode} "
+                      f"slab {slab}: error/bound {ratio}")
+                checked[f"{name}:{mode}:slab{slab}"] = ratio
+                worst = max(worst, ratio)
+                if name == "cell" and mode == "column" and slab == SLAB:
+                    cell_err = float((out - ref).abs().max())
+        del x, values, selector, tables, ref, out, again
+    first = g.indptr[:-1]
+    past = int((first * d > 2**31).sum())
+    check(past > 0, "no row of the cell starts past edge 2**31 / D")
+
+    v, e = g.n_nodes, g.n_edges
+    q, sc = quantize_columns(x_full)
+    values, selector = cbsr_topk(x_full, 32)
+    q_r, s_r = cbsr_expand_int8(values, selector, d)
+    del values, selector
+    timing = {"k2_bf16_ms": time_ms(lambda: spmm_csr(g, x16))}
+    for mode, (qq, ss, row) in (("column", (q, sc, False)),
+                                ("row", (q_r, s_r, True))):
+        for slab in (128, 256):
+            timing[f"{mode}_slab{slab}_ms"] = time_ms(
+                lambda: spmm_int8_csr(g, qq, ss, row, slab))
+        timing[f"{mode}_bound"] = k7_bound(v, e, d, row)
+        timing[f"{mode}_roofline"] = dataclasses.asdict(audit_spmm(
+            v, e, d, timing[f"{mode}_slab{SLAB}_ms"], g.plan, value_bytes=1,
+            x_in_bytes=4, scale=mode))
+    timing["quantize_columns_ms"] = time_ms(lambda: quantize_columns(x_full))
+    timing["spmm_int8_op_ms"] = time_ms(lambda: spmm(g, x_full, "int8"))
+    timing["spmm_bf16_op_ms"] = time_ms(lambda: spmm(g, x_full))
+    timing["plain_ms"] = time_ms(lambda: spmm_int8_plain(g, q, sc, False),
+                                 1, 5)
+    deq = q.float() * sc
+    sparse = torch_sparse(g)
+    timing["torch_sparse_dequantized_f32_ms"] = time_ms(
+        lambda: torch.sparse.mm(sparse, deq))
+    timing["gathered_bytes_column"] = e * d
+    timing["gathered_tb_per_s_column"] = (e * d
+                                          / timing[f"column_slab{SLAB}_ms"]
+                                          / 1e9)
+    emit("k7", slab=SLAB, checked=checked, max_err_over_bound=worst,
+         rtol=1e-5, atol=1e-5, rtol_on=["small", "cell"],
+         cell={"V": v, "E": e, "D": d,
+                                      "rows_past_2_31_over_d": past},
+         timing=timing, seconds=round(time.perf_counter() - t0, 3))
+    del q, sc, q_r, s_r, deq, sparse
+    return dict(err=cell_err, ms=timing[f"column_slab{SLAB}_ms"],
+                plain_ms=timing["plain_ms"], bound=timing["column_bound"],
+                library_ms=timing["torch_sparse_dequantized_f32_ms"])
+
+
+@contextlib.contextmanager
+def hub_auto():
+    """MAXK_HUB_AUTO=1 inside: ops/graph.py reads the variable when it is
+    imported, so its flag is set and restored here."""
+    from maxk_tpu_torch.ops import graph as graph_module
+    prev = graph_module._HUB_AUTO
+    graph_module._HUB_AUTO = True
+    try:
+        yield
+    finally:
+        graph_module._HUB_AUTO = prev
+
+
+def paths_phase(ds, bundle, cfg, train, counted, first_losses) -> dict:
+    """Phase 24: the opt-in compute modes on phase 9's cell, full width.
+
+    - SAGE 4x256 under compute_dtype="int8" on the mask route: 5 steps and
+      an eval, K1 = 4 and K7 = 8 a step and no K2;
+    - maxk_spgemm under "int8_rowscale" at the cell (k = 32), forward
+      (K4, K6's int8 mode, K7) and backward (K2, K3, K6), each count set
+      to 0 just before and read just after; the forward held to the dense
+      float32 product at the JAX test's bounds (mean error over max(1,
+      mean |ref|) < 5e-3, none > 0.1) and to its plain composition at
+      K7's bound; dx bit-equal to the CBSR route's at bfloat16;
+    - the hub split under MAXK_HUB_AUTO=1 at the cell: H and the slabs'
+      MB; one float32 maxk_spgemm and its dx on the mask route held to the
+      hub-free graph's within two summation orders of each row's edges
+      and slab columns; 5 SAGE steps on each route, each first loss
+      within rtol 1e-4 of the hub-free one (phases 9 and 10).
+    Returns the launches on these paths."""
+    from maxk_tpu_torch.models.models import GraphBundle
+    from maxk_tpu_torch.ops.cbsr import cbsr_expand_int8, cbsr_topk
+    from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
+    from maxk_tpu_torch.ops.cuda_spmm_int8 import spmm_int8_plain
+    from maxk_tpu_torch.ops.cuda_topk import maxk_forward
+    from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spgemm_forward_cbsr
+    t0 = time.perf_counter()
+    dev = bundle.g_mean.device
+    n_layers = cfg.hidden_layers
+    zero = {n: 0 for n in counted}
+
+    def counts() -> dict:
+        return {name: fn.launches for name, fn in counted.items()}
+
+    # -- SAGE under "int8", mask route.
+    icfg = types.SimpleNamespace(**{**vars(cfg), "compute_dtype": "int8"})
+    steps_i, launches_i, peak_i = train(
+        {**zero, "k1": n_layers, "k7": 2 * n_layers}, icfg)
+
+    # -- maxk_spgemm under "int8_rowscale".
+    g, g_t = bundle.g_mean, bundle.g_mean_t
+    v, d, k = g.n_nodes, 256, 32
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(v, d, device=dev, generator=gen)
+    dy = torch.randn(v, d, device=dev, generator=gen)
+    xg = x.clone().requires_grad_(True)
+    for fn in counted.values():
+        fn.launches = 0
+    y = maxk_spgemm(g, g_t, xg, k, "int8_rowscale")
+    torch.cuda.synchronize()
+    fwd = counts()
+    y.backward(dy)
+    torch.cuda.synchronize()
+    bwd = {n: c - fwd[n] for n, c in counts().items()}
+    check(fwd == {**zero, "k4": 1, "k6_int8": 1, "k7": 1}
+          and bwd == {**zero, "k2": 1, "k3": 1, "k6": 1},
+          f"maxk_spgemm under int8_rowscale launched {fwd} forward, {bwd} "
+          f"backward")
+    y_s, _ = maxk_forward(x, k)
+    dense = spmm_csr(g, y_s)
+    err = (y.detach() - dense).abs() / max(1.0, float(dense.abs().mean()))
+    jax_bounds = {"mean": float(err.mean()), "max": float(err.max())}
+    check(jax_bounds["mean"] < 5e-3 and jax_bounds["max"] <= 0.1,
+          f"int8_rowscale forward off the dense product: {jax_bounds}")
+    values, selector = cbsr_topk(x, k)
+    q, sc = cbsr_expand_int8(values, selector, d)
+    plain = spmm_int8_plain(g, q, sc, True)
+    ratio = k7_ratio(g, q, sc, True, y.detach(), plain)
+    check(ratio <= 1.0, f"int8_rowscale forward off its plain composition: "
+                        f"error/bound {ratio}")
+    xc = x.clone().requires_grad_(True)
+    with cbsr_env():
+        maxk_spgemm(g, g_t, xc, k).backward(dy)
+    check(torch.equal(xg.grad.view(torch.int32), xc.grad.view(torch.int32)),
+          "int8_rowscale dx is not the CBSR route's at bfloat16")
+    rowscale = dict(
+        shape=[v, d], k=k, launches_forward={n: c for n, c in fwd.items()
+                                             if c},
+        launches_backward={n: c for n, c in bwd.items() if c},
+        vs_dense_f32=jax_bounds, vs_plain_err_over_bound=ratio,
+        dx_bit_equal_to_cbsr_bf16=True,
+        forward_ms=time_ms(lambda: spgemm_forward_cbsr(
+            g, values, selector, d, "int8_rowscale")),
+        forward_bf16_expansion_ms=time_ms(lambda: spgemm_forward_cbsr(
+            g, values, selector, d)))
+    rowscale_launches = {n: fwd[n] + bwd[n] for n in fwd}
+    del xg, xc, y, y_s, dense, err, values, selector, q, sc, plain
+
+    # -- the hub split under MAXK_HUB_AUTO=1.
+    t1 = time.perf_counter()
+    with hub_auto():
+        hub = GraphBundle.from_csr(ds.csr, norms=("mean",), symmetric=True,
+                                   device=dev)
+    build_s = time.perf_counter() - t1
+    check(hub.g_mean.hub_ids is not None and hub.g_mean_t.hub_ids is not None,
+          "MAXK_HUB_AUTO=1 did not split hub columns at the cell")
+    h = int(hub.g_mean.hub_ids.numel())
+    # float32 on the mask route: the same MaxK masks, so the two differ
+    # only in the order of each row's sums over its edges and H columns.
+    results = {}
+    for name, graphs in (("hub", hub), ("free", bundle)):
+        xx = x.clone().requires_grad_(True)
+        yy = maxk_spgemm(graphs.g_mean, graphs.g_mean_t, xx, k, "float32")
+        yy.backward(dy)
+        results[name] = (yy.detach(), xx.grad)
+    y_s, mask = maxk_forward(x, k)
+    ratios = {}
+    for i, (name, g0, operand) in enumerate((("y", g, y_s),
+                                             ("dx", g_t, dy))):
+        g_abs = dataclasses.replace(g0, values=g0.values.abs())
+        terms = spmm_csr_plain(g_abs, operand.abs()).double()
+        if name == "dx":
+            terms = terms * mask
+        n = torch.diff(g0.indptr).to(torch.float64)[:, None] + h + 1
+        bound = 2 * n * 2.0 ** -24 * terms
+        diff = (results["hub"][i].double() - results["free"][i].double())
+        ratios[name] = float((diff.abs() / bound.clamp_min(1e-30)).max())
+        del g_abs, terms, n, bound, diff
+    del results, y_s, mask
+    check(max(ratios.values()) <= 1.0,
+          f"the hub graph's maxk_spgemm off the hub-free one: {ratios}")
+    per_route = {}
+    for route, per_step in (
+            ("mask", {**zero, "k1": n_layers, "k2": 2 * n_layers}),
+            ("cbsr", {**zero, "k1": n_layers, "k2": 2 * n_layers,
+                      "k3": n_layers, "k4": n_layers, "k6": 2 * n_layers})):
+        with cbsr_env() if route == "cbsr" else contextlib.nullcontext():
+            steps_h, launches_h, peak_h = train(per_step, cfg, hub)
+        first, free = steps_h[0]["loss"], first_losses[route]
+        check(abs(first - free) <= 1e-4 * abs(free),
+              f"hub {route} first loss {first} != hub-free {free}")
+        per_route[route] = dict(
+            steps=steps_h, launches=launches_h, peak_mem_gib=peak_h,
+            median_step_ms=statistics.median(s["ms"] for s in steps_h),
+            first_loss=first, hub_free_first_loss=free)
+    hubs = dict(H=h, slab_mb={name: getattr(hub, name).hub_dense.numel() * 4
+                              / 1e6 for name in ("g_mean", "g_mean_t")},
+                hub_edges=hub.g_mean.n_hub_edges, E=hub.g_mean.n_edges,
+                build_seconds=round(build_s, 3),
+                f32_err_over_order_bound=ratios, routes=per_route)
+    del hub, x, dy
+
+    emit("paths", config="sage 4x256 maxk k=32 norm dropout=0.5",
+         int8=dict(steps=steps_i, launches=launches_i, peak_mem_gib=peak_i,
+                   median_step_ms=statistics.median(s["ms"]
+                                                    for s in steps_i)),
+         int8_rowscale=rowscale, hubs=hubs,
+         seconds=round(time.perf_counter() - t0, 3))
+    return {n: launches_i[n] + rowscale_launches[n]
+            + sum(r["launches"][n] for r in per_route.values())
+            for n in counted}
 
 
 def main() -> int:
@@ -2105,7 +2583,7 @@ def main() -> int:
 
     steps, launches, peak = train(
         {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0, "k5": 0,
-         "k1_wide": 0, "k4_wide": 0})
+         "k1_wide": 0, "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0})
     median_step_ms = statistics.median(s["ms"] for s in steps)
     emit("train", config="sage 4x256 maxk k=32 norm dropout=0.5 bf16",
          V=v, E=csr.n_edges, steps=steps, median_step_ms=median_step_ms,
@@ -2115,7 +2593,8 @@ def main() -> int:
     with cbsr_env():
         steps_c, launches_c, peak_c = train(
             {"k1": n_layers, "k2": 2 * n_layers, "k3": n_layers,
-             "k4": n_layers, "k5": 0, "k1_wide": 0, "k4_wide": 0})
+             "k4": n_layers, "k5": 0, "k1_wide": 0, "k4_wide": 0,
+             "k6": 2 * n_layers, "k6_int8": 0, "k7": 0})
     first, first_c = steps[0]["loss"], steps_c[0]["loss"]
     check(abs(first_c - first) <= 1e-6 * abs(first),
           f"CBSR first loss {first_c} != mask route's {first}")
@@ -2393,7 +2872,8 @@ def main() -> int:
         mbundle = GraphBundle.for_model(csr, name, symmetric=True, device=dev)
         m_steps, m_launches, m_peak = train(
             {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0, "k5": 0,
-             "k1_wide": 0, "k4_wide": 0}, mcfg, mbundle)
+             "k1_wide": 0, "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0},
+            mcfg, mbundle)
         model_steps[name] = dict(
             config=f"{name} 4x256 maxk k=32 norm dropout=0.5 bf16",
             steps=m_steps,
@@ -2477,6 +2957,17 @@ def main() -> int:
     # -- 21 the golden rows the card had not checked -----------------------
     golden_launches = golden_rows_phase()
 
+    # -- 22 K6, cbsr_expand ------------------------------------------------
+    k6 = k6_phase(x_full, gen)
+
+    # -- 23 K7, the int8 SpMM ----------------------------------------------
+    k7 = k7_phase(split_graphs, g, x_full, x16)
+
+    # -- 24 the opt-in compute modes at the cell ---------------------------
+    paths_launches = paths_phase(
+        ds, bundle, cfg, train, counted,
+        {"mask": steps[0]["loss"], "cbsr": steps_c[0]["loss"]})
+
     # The launches on the main paths: K1 and K2 in SAGE (phase 9), GCN, GIN
     # and GNN_res (phase 14), the harness (phase 17), the reddit steps
     # (phase 20) and the golden rows (phase 21); K3 and K4 in the CBSR
@@ -2489,12 +2980,22 @@ def main() -> int:
                           + dist_launches[n] for n in ("k3", "k4")})
     # K5 on its path: SAGE and the harness under the flag (phase 19).
     main_launches["k5"] = k5["launches"]["k5"]
+    # K6 in the CBSR route (phase 10), the harness, the ranks, SAGE under
+    # the flag (phase 19) and the compute modes' paths (phase 24); its
+    # int8 mode and K7 on those paths (phase 24) and the reddit int8 steps
+    # (phase 20).
+    main_launches["k6"] = (launches_c["k6"] + bench_launches["k6"]
+                           + dist_launches["k6"] + k5["launches"]["k6"]
+                           + paths_launches["k6"])
+    for n in ("k6_int8", "k7"):
+        main_launches[n] = paths_launches[n] + reddit_launches[n]
 
     def entry(name, source, replaces, n, err, ms, plain, bound, by, lib,
               dist_n):
         return {"name": name, "route": "cuda",
                 "source": f"maxk_tpu_torch/csrc/{source}",
-                "replaces": f"maxk_tpu/ops/{replaces}", "launches": n,
+                "replaces": replaces if replaces.startswith("tools/")
+                else f"maxk_tpu/ops/{replaces}", "launches": n,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib,
                 "dist_launches": dist_n}
@@ -2524,6 +3025,19 @@ def main() -> int:
         entry("spgemm_cbsr", "spgemm_cbsr.cu", "spgemm.py:144",
               main_launches["k5"], k5["err"], k5["ms"], k5["plain_ms"],
               *k5["bound"], k5["library_ms"], dist_launches["k5"]),
+        entry("cbsr_expand", "cbsr_expand.cu", "tools/probe_expand.py:40",
+              main_launches["k6"], k6["err"], k6["ms"], k6["plain_ms"],
+              *k6["bound"], k6["library_ms"], dist_launches["k6"]),
+        entry("cbsr_expand_int8", "cbsr_expand.cu",
+              "tools/probe_expand.py:40", main_launches["k6_int8"],
+              k6["int8"]["err"], k6["int8"]["ms"], k6["int8"]["plain_ms"],
+              *k6["int8"]["bound"], k6["int8"]["library_ms"],
+              dist_launches["k6_int8"]),
+        # No pallas_call: the XLA scans of the int8 modes (spmm.py:308,
+        # and spgemm.py:189 _rowscale_impl).
+        entry("spmm_int8", "spmm_int8.cu", "spmm.py:308",
+              main_launches["k7"], k7["err"], k7["ms"], k7["plain_ms"],
+              *k7["bound"], k7["library_ms"], dist_launches["k7"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,5 @@
-"""Roofline audit of K2, the CSR SpMM, against an H100 machine model.
+"""Roofline audit of K2, the CSR SpMM, and K7, its int8 variant, against
+an H100 machine model.
 
 The reference ships wall-clock timing only (reference kernels/util.h:4-9,
 spmm_base.h:58-74). Here every baseline SpMM is audited against a model
@@ -8,7 +9,8 @@ of what K2 (``csrc/spmm_csr.cu``) must do, by phase:
   f32, write bf16), indptr, the segment plan, cols and vals, x read once,
   out written, the split rows' partials written and read back;
 - the row gather, E*D*elem bytes (each edge pulls its row of x, mostly
-  from L2) at ``gather_bytes_per_s``;
+  from L2; elem 1 for K7's int8 table, plus a 4-byte scale an edge under
+  the row scale) at ``gather_bytes_per_s``;
 - the f32 FMAs, 2*E*D operations at ``fp32_flops_per_s``.
 
 ``audit_spmm`` returns two references: ``floor_ms`` (the largest phase,
@@ -30,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -61,14 +64,23 @@ class RooflineReport:
 
 
 def stream_bytes(n_nodes: int, n_edges: int, dim: int, plan: SegmentPlan,
-                 value_bytes: int = 2, x_in_bytes: int = 4) -> int:
-    """The bytes K2's call moves to and from HBM once each (see the
-    module docstring); x arrives as x_in_bytes a value and is cast to
-    value_bytes first unless the two are equal."""
+                 value_bytes: int = 2, x_in_bytes: int = 4,
+                 scale: Optional[str] = None) -> int:
+    """The bytes K2's (or K7's) call moves to and from HBM once each (see
+    the module docstring); x arrives as x_in_bytes a value and is cast to
+    value_bytes first unless the two are equal. Under an int8 scale
+    (value_bytes 1): "column" quantizes x in the call (a max pass and a
+    quantize pass read x, the int8 table is written, and D scales);
+    "row" reads K6's per-row scales, whose table arrives built."""
     n_fin = int(plan.fin_row.shape[0])
-    cast = n_nodes * dim * (x_in_bytes + value_bytes) \
-        if x_in_bytes != value_bytes else 0
-    return (cast + (n_nodes + 1) * 8
+    if scale == "column":
+        prep = n_nodes * dim * (2 * x_in_bytes + value_bytes) + dim * 4
+    elif scale == "row":
+        prep = n_nodes * 4
+    else:
+        prep = n_nodes * dim * (x_in_bytes + value_bytes) \
+            if x_in_bytes != value_bytes else 0
+    return (prep + (n_nodes + 1) * 8
             + plan.n_segments * (4 + 8 + 4) + n_fin * 4 + (n_fin + 1) * 8
             + n_edges * (4 + 4)
             + n_nodes * dim * value_bytes + n_nodes * dim * 4
@@ -77,14 +89,20 @@ def stream_bytes(n_nodes: int, n_edges: int, dim: int, plan: SegmentPlan,
 
 def audit_spmm(n_nodes: int, n_edges: int, dim: int, time_ms: float,
                plan: SegmentPlan, value_bytes: int = 2,
-               x_in_bytes: int = 4, model: dict = H100) -> RooflineReport:
+               x_in_bytes: int = 4, model: dict = H100,
+               scale: Optional[str] = None) -> RooflineReport:
     """Roofline audit of one K2 call through ``ops/spmm.py::spmm`` on the
-    graph whose segment plan is `plan`."""
+    graph whose segment plan is `plan`; value_bytes is the gathered
+    element's width (the JAX audit's ``pack``): 2 for bfloat16, 4 for
+    float32, 1 for K7's int8 table, whose scale ("column" or "row") adds
+    its bytes (``stream_bytes``) and, per row, one 4-byte scale an edge
+    to the gather."""
     if model.get("gather_bytes_per_s") is None:
         raise ValueError("roofline model has no measured gather rate")
-    gather_s = n_edges * dim * value_bytes / model["gather_bytes_per_s"]
+    gathered = n_edges * (dim * value_bytes + (4 if scale == "row" else 0))
+    gather_s = gathered / model["gather_bytes_per_s"]
     stream_s = (stream_bytes(n_nodes, n_edges, dim, plan, value_bytes,
-                             x_in_bytes) / model["hbm_bytes_per_s"])
+                             x_in_bytes, scale) / model["hbm_bytes_per_s"])
     fma_s = 2 * n_edges * dim / model["fp32_flops_per_s"]
     parts = {"gather": gather_s, "stream": stream_s, "fma": fma_s}
     serial_s = gather_s + stream_s + fma_s

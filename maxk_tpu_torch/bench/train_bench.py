@@ -14,6 +14,8 @@ shape), drawn exactly as the JAX script draws it, or loads a preprocessed
 ``.npz`` with ``--dataset``. Then it times ``Trainer.train_step`` (SAGE
 4x256, MaxK k = 32, bf16 by default; dropout 0.5, norm, Adam 0.01, seed
 97) and the full-graph evaluation forward ``Trainer.eval_logits``.
+``--compute_dtype int8`` runs the aggregations on the quantized gather
+(K7), as the JAX script's flag, which has no choices, allows.
 
 Timing: one first step (its loss is the ``loss`` reported, as the JAX
 script reports its compile call's), 2 warm-up steps, then ``max(2,
@@ -110,11 +112,8 @@ def bench_config(args) -> types.SimpleNamespace:
 def main(argv=None) -> int:
     args = parse_args(argv)
 
-    from maxk_tpu_torch.bench.harness import device_info
     from maxk_tpu_torch.data.datasets import load_dataset
-    from maxk_tpu_torch.ops import kernel_counters
     from maxk_tpu_torch.ops.graph import resolve_device
-    from maxk_tpu_torch.train.loop import Trainer
 
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
@@ -126,9 +125,20 @@ def main(argv=None) -> int:
     graph_s = time.perf_counter() - t0
     print(f"# {ds.name}: V={ds.csr.n_nodes} E={ds.csr.n_edges} "
           f"F={ds.in_size} device={dev} ({graph_s:.1f}s)", file=sys.stderr)
+    print(json.dumps(measure(args, ds, dev, graph_s)))
+    return 0
+
+
+def measure(args, ds, dev, graph_s: float = 0.0, graphs=None) -> dict:
+    """The timed run on a built dataset: a Trainer of ``bench_config(args)``
+    (on ``graphs`` if given, else built), its first step, warm-up and
+    timed steps and evaluations; returns the output line's dict."""
+    from maxk_tpu_torch.bench.harness import device_info
+    from maxk_tpu_torch.ops import kernel_counters
+    from maxk_tpu_torch.train.loop import Trainer
 
     t0 = time.perf_counter()
-    tr = Trainer(bench_config(args), ds, device=dev)
+    tr = Trainer(bench_config(args), ds, graphs=graphs, device=dev)
     trainer_s = time.perf_counter() - t0
     print(f"# graph build + device put: {trainer_s:.1f}s", file=sys.stderr)
 
@@ -154,21 +164,19 @@ def main(argv=None) -> int:
     peak = (torch.cuda.max_memory_allocated(dev) / 2**30
             if dev.type == "cuda" else None)
 
-    out = dict(metric="train_step_ms", graph=ds.name,
-               n_nodes=ds.csr.n_nodes, n_edges=ds.csr.n_edges,
-               model=args.model, nonlinear=args.nonlinear, k=args.maxk,
-               hidden=args.hidden_dim, layers=args.hidden_layers,
-               train_step_ms=statistics.mean(steps),
-               eval_forward_ms=statistics.mean(evals), loss=loss,
-               compute_dtype=args.compute_dtype,
-               train_step_median_ms=statistics.median(steps),
-               train_step_min_ms=min(steps), train_step_max_ms=max(steps),
-               train_steps_ms=steps, eval_forward_runs_ms=evals,
-               peak_mem_gib=peak, graph_build_s=graph_s,
-               trainer_build_s=trainer_s, launches_per_step=launches,
-               device=device_info(dev))
-    print(json.dumps(out))
-    return 0
+    return dict(metric="train_step_ms", graph=ds.name,
+                n_nodes=ds.csr.n_nodes, n_edges=ds.csr.n_edges,
+                model=args.model, nonlinear=args.nonlinear, k=args.maxk,
+                hidden=args.hidden_dim, layers=args.hidden_layers,
+                train_step_ms=statistics.mean(steps),
+                eval_forward_ms=statistics.mean(evals), loss=loss,
+                compute_dtype=args.compute_dtype,
+                train_step_median_ms=statistics.median(steps),
+                train_step_min_ms=min(steps), train_step_max_ms=max(steps),
+                train_steps_ms=steps, eval_forward_runs_ms=evals,
+                peak_mem_gib=peak, graph_build_s=graph_s,
+                trainer_build_s=trainer_s, launches_per_step=launches,
+                device=device_info(dev))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-// The segment plan and its finish pass, shared by K2 (spmm_csr.cu) and K5
-// (spgemm_cbsr.cu).
+// The segment plan and its finish pass, shared by K2 (spmm_csr.cu), K5
+// (spgemm_cbsr.cu) and K7 (spmm_int8.cu).
 //
 // Both kernels cut every row's edges into segments of at most seg_len
 // consecutive edges (ops/graph.py SegmentPlan) and sum each segment on
@@ -34,12 +34,15 @@ struct Plan {
 // The body of a finish kernel, run by one block per row of the finish
 // list: out[row] = sum of its partials rows, in segment order, from 0.0f;
 // an empty range writes zeros. Each source wraps it in a __global__ of its
-// own name (spmm_finish_kernel, spgemm_cbsr_finish_kernel), so a profile
-// puts the pass under the kernel that launched it.
-template <int VEC>
-__device__ __forceinline__ void finish_rows(const float* __restrict__ partials,
-                                            float* __restrict__ out,
-                                            const Plan plan, int d) {
+// own name (spmm_finish_kernel, spgemm_cbsr_finish_kernel,
+// spmm_int8_finish_kernel), so a profile puts the pass under the kernel
+// that launched it. With SCALE (K7's per-column int8 scale) each sum is
+// multiplied by col_scale[column] before it is stored; without it the
+// pass is K2's and K5's, unchanged.
+template <int VEC, bool SCALE = false>
+__device__ __forceinline__ void finish_rows(
+    const float* __restrict__ partials, float* __restrict__ out,
+    const Plan plan, int d, const float* __restrict__ col_scale = nullptr) {
   const int64_t i = blockIdx.x;
   const int64_t row = plan.fin_row[i];
   const int64_t p0 = plan.fin_ptr[i];
@@ -68,6 +71,10 @@ __device__ __forceinline__ void finish_rows(const float* __restrict__ partials,
         if (p + j < p1)
 #pragma unroll
           for (int q = 0; q < VEC; ++q) acc[q] += part[j][q];
+    }
+    if constexpr (SCALE) {
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[q] *= col_scale[f + q];
     }
     float* o = out + row * d + f;
     if constexpr (VEC == 4) {

@@ -20,7 +20,9 @@ GNNRes's BatchNorm keeps flax's ``batch_stats`` as running buffers, so
 weights carry across (``models/convert.py``). flax's defaults are set
 explicitly: LayerNorm eps 1e-6, BatchNorm momentum 0.99 and eps 1e-5,
 xavier-uniform weights and zero biases. MaxK runs on K1 and every
-aggregation on K2 (``ops/maxk.py``, ``ops/spmm.py``).
+aggregation on K2 (``ops/maxk.py``, ``ops/spmm.py``), or on K7 under
+``compute_dtype="int8"``, as in the JAX models; "int8_rowscale" is
+refused (TypeError), as ``jnp.dtype`` refuses it there.
 
 Graphs are call-time arguments (a ``GraphBundle``), never parameters.
 On a rank of row-partitioned training (``maxk_tpu_torch/parallel/``) the
@@ -40,7 +42,7 @@ from torch import nn
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR, resolve_device
 from maxk_tpu_torch.ops.maxk import maxk
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm, uses_cbsr
-from maxk_tpu_torch.ops.spmm import spmm_t
+from maxk_tpu_torch.ops.spmm import INT8_ROWSCALE, spmm_t
 from maxk_tpu_torch.parallel.mesh import GraphGroup, all_reduce_sum_grad
 
 # Aggregations each model family consumes.
@@ -68,25 +70,34 @@ class GraphBundle:
 
     @staticmethod
     def from_csr(csr: CSRGraph, norms=("mean", "sum", "sym"),
-                 symmetric: bool = False, device=None) -> "GraphBundle":
+                 symmetric: bool = False, device=None,
+                 hub_cols: Optional[int] = None) -> "GraphBundle":
         """symmetric=True asserts A == A^T including edge values. Then the
         sum/sym matrices are their own transpose (shared, not rebuilt),
         and the mean transpose (D^-1 A)^T = A D^-1 keeps A's structure:
         a column-degree rescale of the values instead of a transpose,
-        sharing A's device arrays and segment plan."""
+        sharing A's device arrays and segment plan. Under a hub split
+        (``hub_cols``, ``DeviceCSR.from_csr``'s knob) the slab holds A's
+        values, so the mean transpose is built from the rescaled CSR
+        instead, as the JAX package builds it."""
         device = resolve_device(device)
+
+        def build(c: CSRGraph) -> DeviceCSR:
+            return DeviceCSR.from_csr(c, device, hub_cols=hub_cols)
+
         built = {}
         for norm in norms:
             base = csr.normalize("none" if norm == "sum" else norm)
-            built[f"g_{norm}"] = DeviceCSR.from_csr(base, device)
+            g = built[f"g_{norm}"] = build(base)
             if symmetric and norm in ("sum", "sym"):
-                t = built[f"g_{norm}"]
+                t = g
+            elif symmetric and norm == "mean" and g.hub_ids is None:
+                t = dataclasses.replace(g, values=torch.from_numpy(
+                    mean_transpose_values(csr)).to(device))
             elif symmetric and norm == "mean":
-                t = dataclasses.replace(
-                    built[f"g_{norm}"], values=torch.from_numpy(
-                        mean_transpose_values(csr)).to(device))
+                t = build(csr.with_values(mean_transpose_values(csr)))
             else:
-                t = DeviceCSR.from_csr(base.transpose(), device)
+                t = build(base.transpose())
             built[f"g_{norm}_t"] = t
         return GraphBundle(**built)
 
@@ -196,6 +207,12 @@ class _GNN(nn.Module):
         super().__init__()
         if nonlinear not in ("maxk", "relu"):
             raise ValueError(f"unknown nonlinearity {nonlinear!r}")
+        if compute_dtype == INT8_ROWSCALE:
+            # The JAX model's jnp.dtype("int8_rowscale") fails the same
+            # way; the mode is reached through maxk_spgemm.
+            raise TypeError("compute_dtype 'int8_rowscale' is not a model "
+                            "dtype; pass it to maxk_spgemm or "
+                            "spgemm_forward_cbsr")
         self.num_hid_layers = num_hid_layers
         self.maxk = maxk
         self.feat_drop = feat_drop
@@ -250,7 +267,7 @@ class SAGE(_GNN):
             # (forward x * mask, backward g * mask), so one MaxK feeding
             # both branches computes the same values and gradients with
             # one K1 launch.
-            if uses_cbsr(graphs.g_mean):
+            if uses_cbsr(graphs.g_mean, self.compute_dtype):
                 return (maxk(x, self.maxk),
                         maxk_spgemm(graphs.g_mean, graphs.g_mean_t, x,
                                     self.maxk, self.compute_dtype))

@@ -5,13 +5,14 @@ A (V, D) matrix with k nonzeros per row is stored as:
   selector: (V, k) int32, their columns, ascending per row
 
 as in the JAX package (``maxk_tpu/ops/cbsr.py``): exact float32 values,
-no uint8 round trip, and int32 selectors, so no cap on D. The stored
-selectors stay int32; ``scatter_`` and ``gather`` get an int64 copy.
+no uint8 round trip, and int32 selectors, so no cap on D.
 
 - ``cbsr_topk``: each row's exact top-k as CBSR, first-column ties, at
   any D (``ops/cuda_topk.py``: on the card K4 up to 1024 columns, the
   wide kernel ``csrc/topk_wide.cu`` above).
-- ``cbsr_expand``: CBSR back to a dense (V, dim) matrix.
+- ``cbsr_expand``: CBSR back to a dense (V, dim) matrix, in the values'
+  dtype or a given one (K6, ``ops/cuda_expand.py``); ``cbsr_expand_int8``
+  the same matrix as an int8 table with a per-row scale (K6's int8 mode).
 - ``cbsr_gather``: a dense (V, D) matrix sampled at the selectors (K3,
   ``ops/cuda_gather.py``), in the input's dtype.
 - ``cbsr_nbytes``: CBSR and dense sizes, for traffic accounting.
@@ -21,20 +22,14 @@ from __future__ import annotations
 
 import torch
 
+from maxk_tpu_torch.ops.cuda_expand import (cbsr_expand_forward,
+                                            cbsr_expand_int8)
 from maxk_tpu_torch.ops.cuda_gather import cbsr_gather_forward
 from maxk_tpu_torch.ops.cuda_topk import cbsr_topk_forward
 
 cbsr_topk = cbsr_topk_forward
 cbsr_gather = cbsr_gather_forward
-
-
-def cbsr_expand(values: torch.Tensor, selector: torch.Tensor,
-                dim: int) -> torch.Tensor:
-    """dense[i, selector[i, l]] = values[i, l], zeros elsewhere; (V, dim)
-    in values' dtype. Selectors must be distinct within a row."""
-    return torch.zeros((values.shape[0], dim), dtype=values.dtype,
-                       device=values.device).scatter_(
-        1, selector.long(), values)
+cbsr_expand = cbsr_expand_forward
 
 
 def cbsr_nbytes(n_nodes: int, k: int, dim: int,

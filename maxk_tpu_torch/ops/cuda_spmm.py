@@ -52,7 +52,7 @@ def spmm_csr_plain(g: DeviceCSR, x: torch.Tensor) -> torch.Tensor:
         torch.arange(plan.n_segments, device=dev), lengths)
     seg = torch.zeros((plan.n_segments, d), dtype=torch.float32, device=dev)
     step = max(1, _PLAIN_CHUNK_ELEMS // max(1, d))
-    for lo in range(0, g.n_edges, step):
+    for lo in range(0, g.indices.shape[0], step):
         cols = g.indices[lo:lo + step].long()
         contrib = g.values[lo:lo + step, None] * x[cols].float()
         seg.index_add_(0, seg_of_edge[lo:lo + step], contrib)

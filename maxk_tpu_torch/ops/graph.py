@@ -6,12 +6,18 @@ device form is plain CSR arrays on a torch device plus K2's segment plan
 (``SegmentPlan``): the SpMM kernel (``csrc/spmm_csr.cu``) walks row
 segments of at most ``SEG_LEN`` edges, so the TPU's row-block edge tiles
 have no counterpart here.
+
+Hub-column densification (``split_hub_columns``, the JAX package's, bit
+for bit) is opt-in: ``DeviceCSR.from_csr(..., hub_cols=...)`` moves the
+edges into a few high in-degree columns to a dense (V, H) slab, which the
+SpMM resolves as one matmul, ``hub_dense @ x[hub_ids]`` (``ops/spmm.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Optional
 
 import numpy as np
@@ -155,6 +161,83 @@ class CSRGraph:
         return self.with_values(vals.astype(np.float32))
 
 
+# ---------------------------------------------------------------------------
+# Hub-column densification (the JAX package's ops/graph.py)
+# ---------------------------------------------------------------------------
+#
+# On power-law graphs a few high in-degree "hub" columns receive a large
+# share of the edges. Those edges can leave the sparse format: a dense
+# (V, H) slab (column h = hub node hub_ids[h], entries = the edges' values)
+# resolves them as one matmul, hub_dense @ x[hub_ids]. The JAX package
+# measured no gain on its TPU and keeps the split opt-in (hub_cols > 0, or
+# MAXK_HUB_AUTO=1 for its machine-model gate, read when the module is
+# imported, as there); so does the port. Row shards never engage hubs:
+# the slab's columns index the global node space.
+
+HUB_MIN_NODES = 32768       # below this the auto gate stays off
+HUB_MIN_COLS = 128          # no slab matmul for fewer columns
+HUB_MIN_DEG = 128           # the auto gate's floor on a hub's in-degree
+_HUB_BREAK_EVEN_FRAC = 1.0 / 300.0   # in-degree >= V * frac pays for itself
+_HUB_BUDGET_MB = float(os.environ.get("MAXK_HUB_BUDGET_MB", "256"))
+_HUB_AUTO = os.environ.get("MAXK_HUB_AUTO", "0") == "1"
+
+
+def split_hub_columns(csr: CSRGraph, max_cols: int, break_even_deg: int
+                      ) -> Optional[tuple[np.ndarray, np.ndarray, CSRGraph]]:
+    """Split off hub-column edges: (hub_ids, slab, residual) or None.
+
+    hub_ids: (H,) int32 sorted node ids with in-degree >= break_even_deg
+    (top-max_cols by in-degree, H rounded down to a multiple of 128);
+    slab: (V, H) float32 with slab[r, h] = sum of values of edges
+    r -> hub_ids[h]; residual: CSRGraph holding every other edge (CSR
+    order preserved).
+    """
+    in_deg = csr.in_degrees
+    cand = np.nonzero(in_deg >= max(1, break_even_deg))[0]
+    if len(cand) > max_cols:
+        cand = cand[np.argsort(-in_deg[cand], kind="stable")[:max_cols]]
+    h = (len(cand) // 128) * 128
+    if h == 0:
+        return None
+    if h < len(cand):
+        cand = cand[np.argsort(-in_deg[cand], kind="stable")[:h]]
+    hub_ids = np.sort(cand).astype(np.int32)
+
+    v = csr.n_nodes
+    pos = np.full(v, -1, np.int32)
+    pos[hub_ids] = np.arange(h, dtype=np.int32)
+    hub_edge = pos[csr.indices] >= 0
+    rows = np.repeat(np.arange(v, dtype=np.int64), np.diff(csr.indptr))
+
+    slab = np.zeros((v, h), np.float32)
+    np.add.at(slab, (rows[hub_edge], pos[csr.indices[hub_edge]]),
+              csr.values[hub_edge])
+
+    keep = ~hub_edge
+    resid_counts = np.diff(csr.indptr) - np.bincount(
+        rows[hub_edge], minlength=v)
+    indptr_r = np.zeros(v + 1, np.int64)
+    np.cumsum(resid_counts, out=indptr_r[1:])
+    residual = CSRGraph(indptr_r, csr.indices[keep], csr.values[keep])
+    return hub_ids, slab, residual
+
+
+def _auto_hub(csr: CSRGraph, hub_cols: Optional[int]):
+    """Resolve the hub_cols knob: None = the default (off unless
+    MAXK_HUB_AUTO=1 opts into the machine-model gate), 0 = off, > 0 =
+    force up to that many hub columns."""
+    if hub_cols == 0:
+        return None
+    v = csr.n_nodes
+    if hub_cols is not None:
+        return split_hub_columns(csr, hub_cols, break_even_deg=1)
+    if not _HUB_AUTO or v < HUB_MIN_NODES:
+        return None
+    budget_cols = int(_HUB_BUDGET_MB * 2**20 / (4 * v))
+    break_even = max(HUB_MIN_DEG, int(v * _HUB_BREAK_EVEN_FRAC))
+    return split_hub_columns(csr, budget_cols, break_even)
+
+
 @dataclasses.dataclass(frozen=True)
 class SegmentPlan:
     """K2's work list: every row's edges cut into segments of at most
@@ -243,6 +326,10 @@ class DeviceCSR:
     (``exchange.table(x)``: the halo exchange's ``[local | received]``
     rows, or the all-gather's global rows). Without an exchange the
     graph is square unless ``n_cols`` says otherwise.
+
+    With a hub split (``from_csr``'s ``hub_cols``) the CSR arrays and the
+    plan hold the residual edges, ``hub_ids`` (H,) and ``hub_dense``
+    (V, H) float32 the rest, and ``n_edges`` still counts every edge.
     """
 
     indptr: torch.Tensor     # (V+1,) int64
@@ -252,6 +339,9 @@ class DeviceCSR:
     plan: Optional[SegmentPlan] = None
     n_cols: Optional[int] = None      # rows of the gathered operand
     exchange: Optional[object] = None  # parallel.halo.HaloSpec/GatherSpec
+    hub_ids: Optional[torch.Tensor] = None     # (H,) int32 hub node ids
+    hub_dense: Optional[torch.Tensor] = None   # (V, H) float32 slab
+    n_hub_edges: int = 0                       # edges in the slab
 
     def __post_init__(self):
         if self.n_cols is None:
@@ -259,20 +349,32 @@ class DeviceCSR:
 
     @staticmethod
     def from_csr(csr: CSRGraph, device=None, seg_len: int = SEG_LEN,
-                 n_cols: Optional[int] = None,
-                 exchange=None) -> "DeviceCSR":
+                 n_cols: Optional[int] = None, exchange=None,
+                 hub_cols: Optional[int] = None) -> "DeviceCSR":
+        """hub_cols: None = the auto gate (off unless MAXK_HUB_AUTO=1), 0 =
+        off, > 0 = force up to that many hub columns (the JAX package's
+        ``build_tiled_graph`` knob). The plan is built on the residual."""
         device = resolve_device(device)
+        hub = _auto_hub(csr, hub_cols)
+        hub_kw = {}
+        if hub is not None:
+            hub_ids, slab, residual = hub
+            hub_kw = dict(hub_ids=torch.from_numpy(hub_ids).to(device),
+                          hub_dense=torch.from_numpy(slab).to(device),
+                          n_hub_edges=csr.n_edges - residual.n_edges)
+            csr = residual
         return DeviceCSR(
             indptr=torch.from_numpy(csr.indptr).to(device),
             indices=torch.from_numpy(csr.indices).to(device),
             values=torch.from_numpy(csr.values).to(device),
             n_nodes=csr.n_nodes,
             plan=SegmentPlan.build(csr, seg_len, device),
-            n_cols=n_cols, exchange=exchange)
+            n_cols=n_cols, exchange=exchange, **hub_kw)
 
     @property
     def n_edges(self) -> int:
-        return int(self.indices.shape[0])
+        """Every edge: the CSR's and, under a hub split, the slab's."""
+        return int(self.indices.shape[0]) + self.n_hub_edges
 
     @property
     def device(self) -> torch.device:

@@ -45,9 +45,21 @@ K2's on the expanded operand, bit for bit up to the sign of a zero.
 Outside the gate, and in halo mode, the expansion runs, as in the JAX
 package. The backward is the CBSR route's.
 
-Not ported (ROADMAP queue 1, "opt-in compute modes"): the
-``"int8_rowscale"`` compute mode, which ``resolve_compute_dtype``
-refuses.
+The opt-in compute modes, as the JAX package dispatches them
+(``spgemm_forward_cbsr``):
+- ``"int8"``: every ``spmm`` quantizes its operand per column and runs
+  K7 (``ops/spmm.py``), on the mask route and in the CBSR route's
+  expansion and backward; never K5. On a halo shard the CBSR forward
+  computes in bfloat16.
+- ``"int8_rowscale"`` (``spgemm_forward_cbsr`` and ``maxk_spgemm``
+  only; it sends ``maxk_spgemm`` to the CBSR route): at dim % 4 == 0 K6's
+  int8 mode writes the expansion as an int8 table with a per-row scale
+  and K7 reads it; else, and in halo mode, bfloat16. Its backward
+  computes in bfloat16.
+- Hub columns (``DeviceCSR.hub_ids``): where the forward reads CBSR rows
+  (K5, the row-scaled table) the hub rows are expanded (K6) and their
+  term, ``hub_matmul``, added; the expansion route's ``spmm`` adds it
+  itself.
 """
 
 from __future__ import annotations
@@ -56,13 +68,16 @@ import os
 
 import torch
 
-from maxk_tpu_torch.ops.cbsr import cbsr_expand, cbsr_gather, cbsr_topk
+from maxk_tpu_torch.ops.cbsr import (cbsr_expand, cbsr_expand_int8,
+                                     cbsr_gather, cbsr_topk)
 from maxk_tpu_torch.ops.cuda_spgemm_cbsr import MAX_DIM, MAX_K, spgemm_cbsr_csr
+from maxk_tpu_torch.ops.cuda_spmm_int8 import spmm_int8_csr
 from maxk_tpu_torch.ops.cuda_topk import maxk_forward
 from maxk_tpu_torch.ops.graph import DeviceCSR
-from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
-from maxk_tpu_torch.ops.spmm import (DTypeLike, gather_table,
-                                     resolve_compute_dtype, spmm)
+from maxk_tpu_torch.ops.spmm import (INT8, INT8_ROWSCALE, DTypeLike,
+                                     gather_table, hub_matmul,
+                                     resolve_compute_dtype, spmm,
+                                     spmm_table)
 
 # The packed wire's widest row: its selectors are uint8.
 WIRE_MAX_D = 256
@@ -77,16 +92,19 @@ def cbsr_route() -> bool:
     return os.environ.get("MAXK_FUSED_MASK") == "0"
 
 
-def uses_cbsr(g: DeviceCSR) -> bool:
+def uses_cbsr(g: DeviceCSR, compute_dtype: DTypeLike = None) -> bool:
     """True where maxk_spgemm runs on CBSR: under MAXK_FUSED_MASK=0 or
-    CBSR_GATHER_MODE, and on every row shard, where CBSR is the wire
-    format."""
-    return cbsr_route() or CBSR_GATHER_MODE or g.exchange is not None
+    CBSR_GATHER_MODE, on every row shard, where CBSR is the wire format,
+    and under "int8_rowscale" (the JAX package's ``_mask_path``)."""
+    return (cbsr_route() or CBSR_GATHER_MODE or g.exchange is not None
+            or compute_dtype == INT8_ROWSCALE)
 
 
-def _gather_gate(dim: int, k: int) -> bool:
-    """The JAX package's gate of the CBSR-operand forward."""
-    return CBSR_GATHER_MODE and dim <= MAX_DIM and 1 <= k <= MAX_K
+def _gather_gate(dim: int, k: int, cd) -> bool:
+    """The JAX package's gate of the CBSR-operand forward: never under
+    the int8 modes."""
+    return (CBSR_GATHER_MODE and dim <= MAX_DIM and 1 <= k <= MAX_K
+            and cd not in (INT8, INT8_ROWSCALE))
 
 
 def _wire_dtypes(dim: int, cd: torch.dtype):
@@ -122,26 +140,62 @@ def _spgemm_cbsr_gather(g: DeviceCSR, values: torch.Tensor,
                            selector.to(torch.uint8).contiguous(), dim)
 
 
+def _hub_term_cbsr(g: DeviceCSR, values: torch.Tensor,
+                   selector: torch.Tensor, dim: int, cd) -> torch.Tensor:
+    """The hub columns' term where the forward reads CBSR rows: only the
+    H hub rows are expanded (K6), then the slab matmul."""
+    ids = g.hub_ids.long()
+    return hub_matmul(g.hub_dense,
+                      cbsr_expand(values[ids].contiguous(),
+                                  selector[ids].contiguous(), dim), cd)
+
+
+def _forward_on_table(g: DeviceCSR, values: torch.Tensor,
+                      selector: torch.Tensor, dim: int, cd) -> torch.Tensor:
+    """float32 A @ expand(values, selector) for CBSR rows that g's columns
+    index (one device, or the all-gathered table), dispatched as the JAX
+    package's ``spgemm_forward_cbsr``: the row-scaled int8 table (K6's
+    int8 mode, K7), K5 under its gate, else the expansion (K6) and
+    ``spmm_table`` (K2, or K7 under "int8")."""
+    hub = None
+    if cd == INT8_ROWSCALE and dim % 4 == 0:
+        out = spmm_int8_csr(g, *cbsr_expand_int8(values, selector, dim),
+                            row_scale=True)
+        hub = torch.bfloat16
+    elif _gather_gate(dim, values.shape[1], cd):
+        out = _spgemm_cbsr_gather(g, values, selector, dim, cd)
+        hub = cd
+    else:
+        if cd == INT8_ROWSCALE:
+            cd = torch.bfloat16
+        x = cbsr_expand(values, selector, dim,
+                        torch.float32 if cd == INT8 else cd)
+        return spmm_table(g, x, cd)
+    if g.hub_ids is not None:
+        out = out + _hub_term_cbsr(g, values, selector, dim, hub)
+    return out
+
+
 def spgemm_forward_cbsr(g: DeviceCSR, values: torch.Tensor,
                         selector: torch.Tensor, dim: int,
                         compute_dtype: DTypeLike = None) -> torch.Tensor:
     """A @ expand(values, selector), in values' dtype: K5 on the CBSR rows
-    under CBSR_GATHER_MODE's gate, else node-level expansion, then K2. On
-    a row shard the CBSR rows cross the wire first; in halo mode the
-    whole table is expanded."""
+    under CBSR_GATHER_MODE's gate, the row-scaled int8 table under
+    "int8_rowscale", else node-level expansion, then K2 (K7 under "int8").
+    On a row shard the CBSR rows cross the wire first; in halo mode the
+    whole table is expanded and the int8 modes compute in bfloat16."""
     cd = resolve_compute_dtype(compute_dtype, values.dtype)
-    gather = _gather_gate(dim, values.shape[1])
     if g.exchange is None:
-        if gather:
-            return _spgemm_cbsr_gather(g, values, selector, dim,
-                                       cd).to(values.dtype)
-        return spmm(g, cbsr_expand(values, selector, dim), cd)
+        return _forward_on_table(g, values, selector, dim,
+                                 cd).to(values.dtype)
+    whole = getattr(g.exchange, "whole_table", False)
+    if not whole and cd in (INT8, INT8_ROWSCALE):
+        cd = torch.bfloat16
     table = gather_table(g, cbsr_wire(values, selector, dim, cd))
     v, s = cbsr_unwire(table, values.shape[1], dim, cd)
-    if gather and getattr(g.exchange, "whole_table", False):
-        return _spgemm_cbsr_gather(g, v, s, dim, cd).to(values.dtype)
-    x = cbsr_expand(v, s, dim).to(cd).contiguous()
-    return spmm_csr(g, x).to(values.dtype)
+    if whole:
+        return _forward_on_table(g, v, s, dim, cd).to(values.dtype)
+    return spmm_table(g, cbsr_expand(v, s, dim, cd), cd).to(values.dtype)
 
 
 def sspmm_sampled(g_t: DeviceCSR, dy: torch.Tensor, selector: torch.Tensor,
@@ -183,9 +237,17 @@ class _MaxKSpgemmCBSR(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         (selector,) = ctx.saved_tensors
-        dx = cbsr_expand(sspmm_sampled(ctx.g_t, dy, selector, ctx.cd),
-                         selector, ctx.dim)
-        return dx.to(ctx.dtype), None, None, None, None
+        dx = cbsr_expand(
+            sspmm_sampled(ctx.g_t, dy, selector, _backward_cd(ctx.cd)),
+            selector, ctx.dim, ctx.dtype)
+        return dx, None, None, None, None
+
+
+def _backward_cd(cd):
+    """The backward's compute dtype (the JAX package's ``_resolve_cd``):
+    bfloat16 under "int8_rowscale", whose row scale does not apply to the
+    dense gradient rows; every other mode its own."""
+    return torch.bfloat16 if cd == INT8_ROWSCALE else cd
 
 
 def maxk_spgemm(g: DeviceCSR, g_t: DeviceCSR, x: torch.Tensor, k: int,
@@ -199,5 +261,5 @@ def maxk_spgemm(g: DeviceCSR, g_t: DeviceCSR, x: torch.Tensor, k: int,
     1 <= k <= D.
     """
     cd = resolve_compute_dtype(compute_dtype, x.dtype)
-    fn = _MaxKSpgemmCBSR if uses_cbsr(g) else _MaxKSpgemm
+    fn = _MaxKSpgemmCBSR if uses_cbsr(g, cd) else _MaxKSpgemm
     return fn.apply(x, g, g_t, k, cd)

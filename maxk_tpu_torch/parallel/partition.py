@@ -79,7 +79,7 @@ class ShardedGraph:
             exchange = None
         return DeviceCSR.from_csr(self.shards[group.rank], group.device,
                                   seg_len, n_cols=self.n_cols(group.rank),
-                                  exchange=exchange)
+                                  exchange=exchange, hub_cols=0)
 
 
 def shard_graph(csr: CSRGraph, n_shards: int,

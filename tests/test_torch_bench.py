@@ -318,6 +318,32 @@ def test_roofline_arithmetic_hand_computed():
                               torch.zeros(8, dtype=torch.int32))
 
 
+def test_roofline_int8_arithmetic_hand_computed():
+    """K7's model: one byte a gathered column; the column scale quantizes
+    x in the call (two reads of f32 x, the int8 write, D scales), the row
+    scale reads V scales and gathers one more 4-byte scale an edge."""
+    csr = CSRGraph.from_coo(np.array([0, 0, 0, 2, 2, 2, 2, 2]),
+                            np.array([1, 2, 0, 0, 1, 2, 1, 0], np.int32), 3)
+    plan = DeviceCSR.from_csr(csr, "cpu", seg_len=2).plan
+    # indptr, segments, fin, fin_ptr, edges, the int8 x, out, partials
+    common = 32 + 80 + 12 + 32 + 64 + 3 * 4 + 48 + 160
+    assert roofline.stream_bytes(3, 8, 4, plan, 1, 4, "column") == \
+        3 * 4 * (4 + 4 + 1) + 4 * 4 + common
+    assert roofline.stream_bytes(3, 8, 4, plan, 1, 4, "row") == \
+        3 * 4 + common
+    model = dict(hbm_bytes_per_s=1e6, fp32_flops_per_s=2e5,
+                 gather_bytes_per_s=1e5)
+    col = roofline.audit_spmm(3, 8, 4, 2.0, plan, 1, model=model,
+                              scale="column")
+    row = roofline.audit_spmm(3, 8, 4, 2.0, plan, 1, model=model,
+                              scale="row")
+    assert col.gather_ms == pytest.approx(0.32)      # 8*4*1 B
+    assert row.gather_ms == pytest.approx(0.64)      # 8*(4*1 + 4) B
+    assert col.stream_ms == pytest.approx(0.564)
+    assert row.stream_ms == pytest.approx(0.452)
+    assert col.fma_ms == row.fma_ms == pytest.approx(0.32)
+
+
 def test_time_fn_on_cpu_counts_calls():
     calls = []
     r = timing.time_fn(lambda: calls.append(1) or torch.zeros(1), warmup=3,

@@ -1,4 +1,4 @@
-"""K1-K5, and the wide top-k kernel for D > 1024, on the card against
+"""K1-K7, and the wide top-k kernel for D > 1024, on the card against
 their plain PyTorch versions.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
@@ -22,7 +22,13 @@ same bits. K5 equals its plain version and K2 on the expanded operand
 per term), and two calls give the same bits, at every k where its
 dispatch changes, on graphs with an odd number of segments, a zero-degree
 row between split rows, and tens of thousands of segments; its pack pass
-equals its plain version.
+equals its plain version. K6 (cbsr_expand) is bit-equal to its plain
+version (it moves values, converts them with one rounding, and in its
+int8 mode computes the plain version's fma, IEEE quotient and rint). K7
+(the int8 SpMM) agrees with its plain version to the two-order bound of
+each row's sum, 2 (n_r + 1) 2**-24 sum_e |w_e q_e scale| (the + 1: the
+column scale's multiply), in both scale modes and slab widths, and two
+calls give the same bits.
 """
 
 import dataclasses
@@ -32,6 +38,10 @@ import pytest
 import torch
 
 from maxk_tpu_torch.ops.cbsr import cbsr_expand
+from maxk_tpu_torch.ops.cuda_expand import (cbsr_expand_forward,
+                                            cbsr_expand_int8,
+                                            cbsr_expand_int8_plain,
+                                            cbsr_expand_plain)
 from maxk_tpu_torch.ops.cuda_gather import (cbsr_gather_forward,
                                             cbsr_gather_plain)
 from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (pack_records,
@@ -39,6 +49,7 @@ from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (pack_records,
                                                  spgemm_cbsr_csr,
                                                  spgemm_cbsr_plain)
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
+from maxk_tpu_torch.ops.cuda_spmm_int8 import spmm_int8_csr, spmm_int8_plain
 from maxk_tpu_torch.ops.cuda_topk import (WIDE_SMEM_CAP, cbsr_topk_forward,
                                           cbsr_topk_forward_wide,
                                           cbsr_topk_plain, maxk_forward,
@@ -423,3 +434,102 @@ def test_kernels_reject_what_they_cannot_take(cuda_device):
         cbsr_gather_forward(x.t().contiguous().t(), sel)
     with pytest.raises(ValueError, match="on"):
         cbsr_gather_forward(x, sel.cpu())
+
+
+@pytest.mark.parametrize("out", ["same", "float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("sel", [torch.int32, torch.uint8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(1, 61), (8, 64), (32, 256), (64, 200),
+                                 (128, 256), (32, 1100), (64, 2048)])
+def test_k6_bit_equal_to_plain(cuda_device, k, d, dtype, sel, out):
+    """One pass up to 1024 float32 columns, several past it; 16-byte
+    stores where a row is whole vectors (not at D = 61, nor bf16 or int8
+    rows of 200 or 1100 bytes' odd multiples), element stores else."""
+    if sel == torch.uint8 and d > 256:
+        pytest.skip("uint8 selectors index D <= 256")
+    x = _x("normal", 777, d, seed=k + d).to(cuda_device)
+    values, selector = cbsr_topk_forward(x, k)
+    values, selector = values.to(dtype), selector.to(sel)
+    if out == "int8":
+        q, scale = cbsr_expand_int8(values, selector, d)
+        q_ref, s_ref = cbsr_expand_int8_plain(values, selector, d)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q_ref)
+        assert torch.equal(scale.view(torch.int32), s_ref.view(torch.int32))
+        return
+    out_dtype = None if out == "same" else getattr(torch, out)
+    y = cbsr_expand_forward(values, selector, d, out_dtype)
+    ref = cbsr_expand_plain(values, selector, d, out_dtype)
+    torch.cuda.synchronize()
+    assert y.dtype == ref.dtype
+    bits = torch.int32 if y.dtype == torch.float32 else torch.int16
+    assert torch.equal(y.view(bits), ref.view(bits))
+
+
+def test_k6_drops_out_of_range_selectors(cuda_device):
+    v = torch.tensor([[1.0, -2.0, 3.0], [4.0, 5.0, -6.0]],
+                     device=cuda_device)
+    s = torch.tensor([[0, 16, 5], [-1, 15, 40]], dtype=torch.int32,
+                     device=cuda_device)
+    assert torch.equal(cbsr_expand_forward(v, s, 16),
+                       cbsr_expand_plain(v, s, 16))
+    q, scale = cbsr_expand_int8(v, s, 16)
+    q_ref, s_ref = cbsr_expand_int8_plain(v, s, 16)
+    assert torch.equal(q, q_ref) and torch.equal(scale, s_ref)
+
+
+def _k7_bound(g, q, scale, row_scale):
+    """2 (n_r + 1) 2**-24 sum_e |w_e| |q[col_e]| scale."""
+    g_abs = dataclasses.replace(g, values=g.values.abs())
+    terms = spmm_int8_plain(g_abs, q.abs(), scale.abs(), row_scale)
+    n = torch.diff(g.indptr).to(torch.float32)[:, None]
+    return 2 * (n + 1) * 2.0 ** -24 * terms.double() + 1e-30
+
+
+@pytest.mark.parametrize("slab", [128, 256])
+@pytest.mark.parametrize("row_scale", [False, True])
+@pytest.mark.parametrize("d", [4, 64, 132, 256, 512])
+@pytest.mark.parametrize("kind", ["uniform", "power_law", "empty_rows",
+                                  "star", "boundary"])
+def test_k7_matches_plain(cuda_device, kind, d, row_scale, slab):
+    if kind in ("star", "boundary"):
+        g = DeviceCSR.from_csr(_split_graph(kind, 8), cuda_device,
+                               seg_len=8)
+    else:
+        g = DeviceCSR.from_csr(_graph(kind, 300, seed=d), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randint(-127, 128, (g.n_nodes, d), generator=gen,
+                      device=cuda_device, dtype=torch.int8)
+    n = g.n_nodes if row_scale else d
+    scale = torch.rand(n, generator=gen, device=cuda_device) + 0.01
+    out = spmm_int8_csr(g, q, scale, row_scale, slab)
+    ref = spmm_int8_plain(g, q, scale, row_scale)
+    torch.cuda.synchronize()
+    assert bool(torch.all((out.double() - ref.double()).abs()
+                          <= _k7_bound(g, q, scale, row_scale)))
+    empty = torch.diff(g.indptr) == 0
+    assert torch.all(out[empty] == 0)
+    again = spmm_int8_csr(g, q, scale, row_scale, slab)
+    assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+
+
+def test_k6_k7_count_launches_and_refuse(cuda_device):
+    g = DeviceCSR.from_csr(_graph("uniform", 64, seed=4), cuda_device)
+    x = _x("normal", 64, 32, seed=5).to(cuda_device)
+    values, selector = cbsr_topk_forward(x, 4)
+    before = (cbsr_expand_forward.launches, cbsr_expand_int8.launches,
+              spmm_int8_csr.launches)
+    cbsr_expand_forward(values, selector, 32)
+    q, scale = cbsr_expand_int8(values, selector, 32)
+    spmm_int8_csr(g, q, scale, True)
+    cbsr_expand_plain(values, selector, 32)
+    cbsr_expand_int8_plain(values, selector, 32)
+    spmm_int8_plain(g, q, scale, True)
+    assert (cbsr_expand_forward.launches, cbsr_expand_int8.launches,
+            spmm_int8_csr.launches) == tuple(n + 1 for n in before)
+    with pytest.raises(ValueError, match="contiguous"):
+        cbsr_expand_forward(values.t().contiguous().t(), selector, 32)
+    with pytest.raises(ValueError, match="D % 4"):
+        spmm_int8_csr(g, q[:, :30].contiguous(), scale, True)
+    with pytest.raises(ValueError, match="scale"):
+        spmm_int8_csr(g, q, scale[:10], True)

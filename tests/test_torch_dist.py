@@ -46,7 +46,7 @@ from maxk_tpu_torch.data.datasets import make_synthetic_dataset
 from maxk_tpu_torch.ops import spgemm as spgemm_module
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
-from maxk_tpu_torch.ops.spmm import spmm_t
+from maxk_tpu_torch.ops.spmm import spmm_dense_oracle, spmm_t
 from maxk_tpu_torch.parallel.launch import spawn
 from maxk_tpu_torch.train.loop import Trainer
 
@@ -185,6 +185,33 @@ def test_sharded_ops_bit_equal_one_device(ranks, inputs, graph, monkeypatch,
     np.testing.assert_array_equal(
         _bits(_rows(ranks, lambda r: r["ops"][key][1])),
         _bits(x.grad.numpy()))
+
+
+@pytest.mark.parametrize("halo", [True, False], ids=["halo", "gather"])
+def test_sharded_int8_spmm(ranks, inputs, graph, halo):
+    """spmm_t under "int8" on shards (tests/test_parallel.py's int8 case
+    mirrored): each rank quantizes the table its exchange builds, so the
+    scale covers the received rows. The all-gather table is every row,
+    so its rows are bit-equal to one device's; the halo table is the
+    rank's and its halo rows, so its rows are held, as the JAX test holds
+    them, to the dense oracle: mean error over max(1, mean |ref|) < 0.02,
+    forward and dx."""
+    g = DeviceCSR.from_csr(graph, "cpu")
+    g_t = DeviceCSR.from_csr(graph.transpose(), "cpu")
+    x = torch.from_numpy(inputs["x"]).requires_grad_(True)
+    y = spmm_t(g, g_t, x, "int8")
+    y.backward(torch.from_numpy(inputs["dy"]))
+    key = ("spmm", "int8", halo)
+    y_r = _rows(ranks, lambda r: r["ops"][key][0])
+    dx_r = _rows(ranks, lambda r: r["ops"][key][1])
+    if not halo:
+        np.testing.assert_array_equal(_bits(y_r), _bits(y.detach().numpy()))
+        np.testing.assert_array_equal(_bits(dx_r), _bits(x.grad.numpy()))
+    for out, a, t in ((y_r, graph, inputs["x"]),
+                      (dx_r, graph.transpose(), inputs["dy"])):
+        ref = spmm_dense_oracle(a, t)
+        err = np.abs(out - ref)
+        assert err.mean() / max(1.0, np.abs(ref).mean()) < 0.02
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])

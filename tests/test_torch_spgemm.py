@@ -38,6 +38,8 @@ import torch
 import maxk_tpu
 from maxk_tpu.ops import spgemm as jax_spgemm
 from maxk_tpu.ops.graph import build_tiled_graph
+from maxk_tpu_torch.ops.cbsr import cbsr_expand_int8, cbsr_topk
+from maxk_tpu_torch.ops.cuda_spmm_int8 import spmm_int8_plain
 from maxk_tpu_torch.ops.graph import SEG_LEN, CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import (maxk_spgemm, spgemm_forward_cbsr,
                                        sspmm_sampled)
@@ -216,8 +218,19 @@ def test_sspmm_sampled_matches_jax(graph, compute_dtype):
         np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
-def test_int8_rowscale_not_ported():
-    dev = DeviceCSR.from_csr(CSRGraph.from_coo([0, 1], [1, 0], 2), "cpu")
-    v, s = torch.ones(2, 1), torch.zeros(2, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="opt-in compute modes"):
-        spgemm_forward_cbsr(dev, v, s, 4, "int8_rowscale")
+@pytest.mark.parametrize("d", [64, 62])
+def test_int8_rowscale_forward_is_the_row_scaled_table(d):
+    """"int8_rowscale" at D % 4 == 0 is K7 (its plain version) on K6's
+    int8 table; at other D it computes in bfloat16, as in the JAX
+    package."""
+    graph = random_graph(100, 5.0, seed=21, power_law=True).normalize("mean")
+    dev = _port_graphs(graph)[0]
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(graph.n_nodes, d)).astype(np.float32))
+    v, s = cbsr_topk(x, 8)
+    out = spgemm_forward_cbsr(dev, v, s, d, "int8_rowscale")
+    if d % 4 == 0:
+        want = spmm_int8_plain(dev, *cbsr_expand_int8(v, s, d), True)
+    else:
+        want = spgemm_forward_cbsr(dev, v, s, d, "bfloat16")
+    assert torch.equal(out, want)

@@ -27,7 +27,9 @@ from maxk_tpu.ops.spmm import spmm as jax_spmm, spmm_t as jax_spmm_t
 from maxk_tpu_torch.ops import cuda_spmm
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr, spmm_csr_plain
 from maxk_tpu_torch.ops.graph import SEG_LEN, CSRGraph, DeviceCSR
-from maxk_tpu_torch.ops.spmm import spmm, spmm_dense_oracle, spmm_t
+from maxk_tpu_torch.ops.cuda_spmm_int8 import spmm_int8_plain
+from maxk_tpu_torch.ops.spmm import (quantize_columns, spmm,
+                                     spmm_dense_oracle, spmm_t)
 
 from conftest import random_graph
 
@@ -233,8 +235,20 @@ def test_spmm_rejects_bad_input():
         spmm_csr(dev, torch.zeros(49, 8))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         spmm_csr(dev, torch.zeros(50, 8, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmm(dev, torch.zeros(50, 8), "int8")
+    with pytest.raises(TypeError, match="int8_rowscale"):
+        spmm(dev, torch.zeros(50, 8), "int8_rowscale")
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        spmm(dev, torch.zeros(50, 8), "float16")
+
+
+def test_spmm_int8_is_k7_on_quantized_columns():
+    """"int8" is K7 (its plain version) on the per-column int8 table."""
+    graph = _graph("empty_rows")
+    dev = _dev(graph)
+    x = torch.from_numpy(_x(graph.n_nodes, 64))
+    want = spmm_int8_plain(dev, *quantize_columns(x), row_scale=False)
+    assert torch.equal(spmm(dev, x, "int8"), want)
+    assert torch.equal(spmm(dev, x, torch.int8), want)
 
 
 def test_spmm_refuses_graph_without_plan():

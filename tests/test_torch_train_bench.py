@@ -159,3 +159,21 @@ def test_first_loss_is_the_first_steps(capsys):
     train_bench.main(argv)
     out = json.loads(capsys.readouterr().out)
     assert out["loss"] == first
+
+
+def test_int8_compute_runs_on_the_quantized_gather(capsys):
+    """--compute_dtype int8 (the JAX script's flag has no choices) trains
+    on the per-column int8 table: its first loss is a Trainer's under
+    "int8", and it differs from the float32 run's only by quantization."""
+    argv = SMALL + ["--device", "cpu", "--epochs", "2", "--hidden_dim",
+                    "32", "--hidden_layers", "2", "--maxk", "8",
+                    "--in-size", "16"]
+    losses = {}
+    for cd in ("int8", "float32"):
+        train_bench.main(argv + ["--compute_dtype", cd])
+        out = json.loads(capsys.readouterr().out)
+        assert out["compute_dtype"] == cd
+        assert math.isfinite(out["loss"])
+        losses[cd] = out["loss"]
+    assert losses["int8"] != losses["float32"]
+    assert losses["int8"] == pytest.approx(losses["float32"], rel=1e-2)

@@ -22,7 +22,8 @@ from maxk_tpu_torch.train.checkpoint import CheckpointManager
 
 def _ops(group, inputs) -> dict:
     """This rank's rows of spmm_t and maxk_spgemm (forward and dx) on its
-    shards, in halo and all-gather mode, at each compute dtype; and of
+    shards, in halo and all-gather mode, at each compute dtype (spmm_t
+    also under "int8", which quantizes the exchanged table); and of
     maxk_spgemm under CBSR_GATHER_MODE in all-gather mode, where K5 reads
     the received table ("spgemm_gather")."""
     csr = CSRGraph(*inputs["graph"])
@@ -35,7 +36,7 @@ def _ops(group, inputs) -> dict:
         x_l = torch.from_numpy(local_rows(x, sg, group.rank))
         dy_l = torch.from_numpy(local_rows(dy, sg, group.rank))
         cases = [("spmm", "float32"), ("spgemm", "float32"),
-                 ("spgemm", "bfloat16")]
+                 ("spgemm", "bfloat16"), ("spmm", "int8")]
         if not halo:
             cases += [("spgemm_gather", "float32"),
                       ("spgemm_gather", "bfloat16")]

@@ -124,8 +124,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  K2's rows past edge 2**31 / D held to a float64 sum and K1
                  bit-equal to its plain version at V rows (32-bit index
                  widths); 3 steps by op group under torch.profiler; K7
-                 timed at both scale modes and slab widths beside K2,
-                 its rows past edge 2**31 / D held to a float64 sum; the
+                 timed at both scale modes and slab widths beside K2
+                 (with its values a clock an SM), its rows past edge
+                 2**31 / D held to a float64 sum; the
                  same measurement under --compute_dtype int8 on the same
                  graphs (train_bench.measure: K1 = 4, K7 = 8 a step)
  21 golden_rows  the golden rows the card had not checked (SAGE k = 8, 16,
@@ -137,17 +138,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  a subprocess, its closing line checked
  22 k6           K6 (cbsr_expand) bit-equal to its plain version: f32 and
                  bf16 values and outputs, k = 1, 8, 32, 64, 128, D = 61,
-                 256, 2048, and its int8 row-scale mode at D = 256 (int32
-                 and uint8 selectors); timed at the cell (k = 32, f32)
-                 beside its plain version, scatter_ and its byte bound,
-                 and the routes' conversions and the int8 mode
- 23 k7           K7 (the int8 SpMM) against its plain version, both scale
-                 modes and slab widths, on phase 5's small and
-                 split-boundary graphs and the cell (its rows past edge
-                 2**31 / D among them): rtol 1e-5 and each row's two-order
-                 bound; timed at the cell beside K2 at bf16, the whole
-                 "int8" spmm, torch.sparse.mm on the dequantized table,
-                 its bound and roofline audit at one byte a column
+                 256, 2048, and its int8 row-scale mode at D = 16, 61,
+                 256, 1024 (int32 selectors, and uint8 at D <= 256);
+                 timed at the cell (k = 32, f32) beside its plain version,
+                 scatter_ and its byte bound, and the routes' conversions
+                 and the int8 mode, beside the earlier kernels' times
+ 23 k7           K7 (the int8 SpMM): no int-to-float conversion (I2F*,
+                 I2FP*) in its segment kernel's SASS; against its plain
+                 version, both scale modes and slab widths, on phase 5's
+                 small and split-boundary graphs and the cell (its rows
+                 past edge 2**31 / D among them): rtol 1e-5 and each row's
+                 two-order bound, and slab 128 bit-identical to slab 256;
+                 timed at the cell with its values a clock an SM at the
+                 sampled SM clock, beside K2 at bf16, the whole "int8"
+                 spmm, torch.sparse.mm on the dequantized table, its bound
+                 and roofline audit at one byte a column
  24 paths        at the cell, full width: SAGE under compute_dtype="int8"
                  (K1 = 4, K7 = 8 a step); maxk_spgemm under
                  "int8_rowscale" (forward K4, K6's int8 mode, K7;
@@ -450,6 +455,24 @@ def ptxas_summary(report: str) -> list:
             out[-1]["spill_stores"] = int(m.group(1))
             out[-1]["spill_loads"] = int(m.group(2))
     return out
+
+
+def sass_functions(lib: str, name: str) -> dict:
+    """{heading: listing} of each kernel in the library `lib` whose
+    mangled name holds `name`, from `cuobjdump -sass`."""
+    from maxk_tpu_torch.native.build import nvcc_path
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                         text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump failed on {lib}: {res.stderr}")
+    return {f.splitlines()[0].strip(): f
+            for f in res.stdout.split("Function : ")[1:]
+            if name in f.splitlines()[0]}
+
+
+def count_int_to_float(listing: str) -> int:
+    """Int-to-float conversions (I2F*, I2FP*) in a SASS listing."""
+    return len(re.findall(r"\bI2FP?(?=[.\s])", listing))
 
 
 def golden_name(model: str, nonlinear: str, k: int,
@@ -1582,10 +1605,13 @@ def _reddit_device(ready) -> dict:
     k7 = {"slab": SLAB, "k2_bf16_ms": k2_ms}
     for mode, (qq, ss, row) in (("column", (q, scale, False)),
                                 ("row", (q_r, s_r, True))):
-        for slab in (128, 256):
-            ms = time_ms(lambda: spmm_int8_csr(g, qq, ss, row, slab))
-            k7[f"{mode}_slab{slab}_ms"] = ms
+        with sm_clock() as mhz:
+            for slab in (128, 256):
+                ms = time_ms(lambda: spmm_int8_csr(g, qq, ss, row, slab))
+                k7[f"{mode}_slab{slab}_ms"] = ms
         ms = k7[f"{mode}_slab{SLAB}_ms"]
+        k7[f"{mode}_values_per_clock_per_sm"] = values_per_clock(e * d, ms,
+                                                                 mhz)
         k7[f"{mode}_roofline"] = dataclasses.asdict(audit_spmm(
             v, e, d, ms, g.plan, value_bytes=1, x_in_bytes=4, scale=mode))
         k7[f"{mode}_bound"] = k7_bound(v, e, d, row)
@@ -1776,9 +1802,16 @@ def golden_rows_phase() -> dict:
     return launches
 
 
-# Phase 22's checks of K6: k and D where its passes and stores change.
+# Phase 22's checks of K6: k and D where its passes and stores change;
+# for the int8 mode, D where its lanes a row change (1, 4, 16, 32).
 EXPAND_KS = (1, 8, 32, 64, 128)
 EXPAND_DIMS = (61, 256, 2048)
+EXPAND_INT8_DIMS = (16, 61, 256, 1024)
+# K6 at the cell before its int8 mode had a kernel of its own (H100 80GB
+# HBM3, 700.00 W; PERF.md), printed beside this run's: float32 out, bfloat16
+# out, the int8 mode.
+K6_BEFORE_MS = {"float32": 0.0708, "f32_to_bf16": 0.0593,
+              "int8_rowscale": 0.0522}
 
 
 def k6_phase(x_full, gen) -> dict:
@@ -1787,14 +1820,15 @@ def k6_phase(x_full, gen) -> dict:
     - bit-equal to its plain version (scatter_ into zeros) on 16384 rows:
       float32 and bfloat16 values, out float32 and bfloat16, k in
       EXPAND_KS (k <= D) and D in EXPAND_DIMS (61: element stores; 2048:
-      two passes); its int8 row-scale mode at D = 256 against
-      cbsr_expand_int8_plain (q and scale bit-equal), int32 and uint8
-      selectors;
+      two passes); its int8 row-scale mode against cbsr_expand_int8_plain
+      (q and scale bit-equal) at D in EXPAND_INT8_DIMS on randn (int32
+      selectors, and uint8 at D <= 256) and at D = 256 on the cell's x
+      (both);
     - at the cell (phase 9's x, k = 32, float32): K6's time against its
       plain version and scatter_, and its byte bound; the routes'
       conversions (float32 values into a bfloat16 operand, the forward's;
       bfloat16 into float32, the backward's) and the int8 mode, each
-      beside its bound.
+      beside its bound, and the earlier kernels' times (K6_BEFORE_MS).
     Returns the kernels line's numbers for both entries."""
     from maxk_tpu_torch.ops.cuda_expand import (cbsr_expand_forward,
                                                 cbsr_expand_int8,
@@ -1819,6 +1853,24 @@ def k6_phase(x_full, gen) -> dict:
                           f"K6 off its plain version: D={d} k={k} "
                           f"{vt} -> {ot}")
                     cases.append(f"D={d}:k={k}:{str(vt)[6:]}->{str(ot)[6:]}")
+    for d in EXPAND_INT8_DIMS:
+        x = torch.randn(rows, d, device=dev, generator=gen)
+        for k in (k for k in EXPAND_KS if k <= d):
+            values, selector = cbsr_topk_forward(x, k)
+            sels = (selector, selector.to(torch.uint8)) if d <= 256 else (
+                selector,)
+            for sel in sels:
+                for vt in (torch.float32, torch.bfloat16):
+                    q, sc = cbsr_expand_int8(values.to(vt), sel, d)
+                    q_ref, s_ref = cbsr_expand_int8_plain(values.to(vt), sel,
+                                                          d)
+                    check(torch.equal(q, q_ref)
+                          and torch.equal(sc.view(torch.int32),
+                                          s_ref.view(torch.int32)),
+                          f"K6's int8 mode off its plain version: D={d} "
+                          f"k={k} {sel.dtype} {vt}")
+                    cases.append(f"int8:D={d}:k={k}:{str(sel.dtype)[6:]}:"
+                                 f"{str(vt)[6:]}:randn")
     x = x_full[:rows].contiguous()
     for k in EXPAND_KS:
         values, selector = cbsr_topk_forward(x, k)
@@ -1869,6 +1921,7 @@ def k6_phase(x_full, gen) -> dict:
     timing["int8_rowscale"]["plain_ms"] = time_ms(
         lambda: cbsr_expand_int8_plain(values, selector, d), 1, 5)
     timing["share_of_bound"] = timing["bound"][0] / timing["ms"]
+    timing["before_ms"] = K6_BEFORE_MS
     emit("k6", checked_cases=len(cases), cases=cases, bit_equal=True,
          cell={"V": v, "D": d, "k": k, "values": "float32"}, timing=timing,
          seconds=round(time.perf_counter() - t0, 3))
@@ -1893,9 +1946,20 @@ def k7_ratio(g, q, scale, row_scale, out, ref) -> float:
     return float((diff / bound.clamp_min(1e-30)).max())
 
 
+def values_per_clock(values: int, ms: float, mhz: list) -> dict:
+    """K7's values (edges times columns) a clock an SM: over the time,
+    132 SMs and the median SM clock nvidia-smi sampled."""
+    clock = statistics.median(mhz)
+    return {"values": values, "sm_clock_mhz": clock,
+            "clock_samples": len(mhz),
+            "per_clock_per_sm": values / (ms * 1e-3) / (132 * clock * 1e6)}
+
+
 def k7_phase(graphs: dict, g, x_full, x16) -> dict:
     """Phase 23: K7 (the int8 SpMM, csrc/spmm_int8.cu).
 
+    - no int-to-float conversion (I2F*, I2FP*) in the SASS of any of
+      spmm_int8_segment_kernel's 4 instantiations;
     - against its plain version, both scale modes (the per-column table of
       x, the per-row table of its k = 32 CBSR rows) and both slab widths,
       on phase 5's small and split-boundary graphs and on the cell's
@@ -1903,13 +1967,15 @@ def k7_phase(graphs: dict, g, x_full, x16) -> dict:
       within each row's two-order bound, and on the small graph and the
       cell also within rtol 1e-5, atol 1e-5, as K2 in phase 5 (the star
       row's 10,243 terms need the bound); zero-degree rows zero; two calls
-      bit-identical;
-    - timed at the cell: each mode and slab beside K2 at bfloat16, the
+      bit-identical, and the two slabs bit-identical;
+    - timed at the cell: each mode and slab (with its values a clock an
+      SM at the sampled SM clock) beside K2 at bfloat16, the
       whole "int8" spmm (its quantization in torch ops, then K7),
       torch.sparse.mm on the dequantized float32 table, its plain
       version, its bound and roofline_audit at one byte a column.
     Returns the kernels line's numbers (column scale, SLAB)."""
     from maxk_tpu_torch.bench.roofline import audit_spmm
+    from maxk_tpu_torch.native.build import load
     from maxk_tpu_torch.ops.cbsr import cbsr_expand_int8, cbsr_topk
     from maxk_tpu_torch.ops.cuda_spmm import spmm_csr
     from maxk_tpu_torch.ops.cuda_spmm_int8 import (SLAB, spmm_int8_csr,
@@ -1917,7 +1983,11 @@ def k7_phase(graphs: dict, g, x_full, x16) -> dict:
     from maxk_tpu_torch.ops.spmm import quantize_columns, spmm
     t0 = time.perf_counter()
     d = x_full.shape[1]
-    checked, worst, cell_err = {}, 0.0, 0.0
+    sass = sass_functions(load("spmm_int8")._name, "spmm_int8_segment_kernel")
+    conversions = {n: count_int_to_float(f) for n, f in sass.items()}
+    check(len(sass) == 4 and not any(conversions.values()),
+          f"K7's SASS: int-to-float conversions {conversions}")
+    checked, worst, cell_err, slab_identical = {}, 0.0, 0.0, []
     for name, gs in {**graphs, "cell": g}.items():
         x = x_full[:gs.n_nodes].contiguous()
         values, selector = cbsr_topk(x, 32)
@@ -1926,8 +1996,9 @@ def k7_phase(graphs: dict, g, x_full, x16) -> dict:
         empty = torch.diff(gs.indptr) == 0
         for mode, (q, sc, row) in tables.items():
             ref = spmm_int8_plain(gs, q, sc, row)
+            outs = {}
             for slab in (128, 256):
-                out = spmm_int8_csr(gs, q, sc, row, slab)
+                out = outs[slab] = spmm_int8_csr(gs, q, sc, row, slab)
                 again = spmm_int8_csr(gs, q, sc, row, slab)
                 if name in ("small", "cell"):
                     # As K2 in phase 5; the star and boundary graphs' long
@@ -1944,7 +2015,11 @@ def k7_phase(graphs: dict, g, x_full, x16) -> dict:
                 worst = max(worst, ratio)
                 if name == "cell" and mode == "column" and slab == SLAB:
                     cell_err = float((out - ref).abs().max())
-        del x, values, selector, tables, ref, out, again
+            check(torch.equal(outs[128].view(torch.int32),
+                              outs[256].view(torch.int32)),
+                  f"K7's slabs differ: {name} {mode}")
+            slab_identical.append(f"{name}:{mode}")
+        del x, values, selector, tables, ref, out, again, outs
     first = g.indptr[:-1]
     past = int((first * d > 2**31).sum())
     check(past > 0, "no row of the cell starts past edge 2**31 / D")
@@ -1957,9 +2032,12 @@ def k7_phase(graphs: dict, g, x_full, x16) -> dict:
     timing = {"k2_bf16_ms": time_ms(lambda: spmm_csr(g, x16))}
     for mode, (qq, ss, row) in (("column", (q, sc, False)),
                                 ("row", (q_r, s_r, True))):
-        for slab in (128, 256):
-            timing[f"{mode}_slab{slab}_ms"] = time_ms(
-                lambda: spmm_int8_csr(g, qq, ss, row, slab))
+        with sm_clock() as mhz:
+            for slab in (128, 256):
+                timing[f"{mode}_slab{slab}_ms"] = time_ms(
+                    lambda: spmm_int8_csr(g, qq, ss, row, slab))
+        timing[f"{mode}_values_per_clock_per_sm"] = values_per_clock(
+            e * d, timing[f"{mode}_slab{SLAB}_ms"], mhz)
         timing[f"{mode}_bound"] = k7_bound(v, e, d, row)
         timing[f"{mode}_roofline"] = dataclasses.asdict(audit_spmm(
             v, e, d, timing[f"{mode}_slab{SLAB}_ms"], g.plan, value_bytes=1,
@@ -1977,7 +2055,9 @@ def k7_phase(graphs: dict, g, x_full, x16) -> dict:
     timing["gathered_tb_per_s_column"] = (e * d
                                           / timing[f"column_slab{SLAB}_ms"]
                                           / 1e9)
-    emit("k7", slab=SLAB, checked=checked, max_err_over_bound=worst,
+    emit("k7", slab=SLAB, int_to_float_in_sass=conversions,
+         slabs_bit_identical=slab_identical, checked=checked,
+         max_err_over_bound=worst,
          rtol=1e-5, atol=1e-5, rtol_on=["small", "cell"],
          cell={"V": v, "E": e, "D": d,
                                       "rows_past_2_31_over_d": past},

@@ -18,6 +18,12 @@ the ideal-overlap lower bound) and ``serial_ms`` (their sum, the
 no-overlap model). ``efficiency`` is the serial model over the achieved
 time, capped at 1.
 
+For K7 the model counts no instruction but the FMAs: not the int-to-float
+conversion of each value (a byte permute and an add; at first one I2F)
+nor each edge's shuffles, address and loop, which set its pace at
+~15 values a clock an SM (PERF.md). Its share of this model measures it
+against a bound that leaves those out.
+
 The peaks are NVIDIA's data sheet for the H100 SXM at its 700 W limit.
 The gather rate is measured: ``gather_probe`` (csrc/gather_probe.cu, K2's
 reads alone, 4 loads in flight a lane as in K2) over the cols of

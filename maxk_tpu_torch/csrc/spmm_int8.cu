@@ -11,10 +11,20 @@
 // row-major (n_cols, D) int8 table (D % 4 == 0), scale float32 (D,) or
 // (n_cols,), out float32 (V, D).
 //
-// What bounds it on the H100: the row gather, E*D bytes (one byte a column,
-// half of K2's bf16 rows), mostly from L2, against the f32 FMAs (2*E*D
-// operations at 67 TFLOP/s). Read once, the compulsory bytes (q, the CSR
-// arrays, out) take less time than the FMAs at D = 256.
+// What bounds it on the H100: the instructions of each edge and value, not
+// bytes. Read once, the compulsory bytes (q, the CSR arrays, out) and the
+// f32 FMAs (2*E*D operations at 67 TFLOP/s) both take about 0.1 ms at the
+// cell (V = 131,072, E = 13,107,200, D = 256), and the row gather, E*D
+// bytes (one byte a column, half of K2's bf16 rows), comes mostly from L2.
+// K7 runs at ~15 values a clock an SM at the cell and at the reddit shape,
+// whose table does not fit the L2. K7 first converted each byte with the
+// int-to-float instruction (I2F), which compute capability 9.0 issues at
+// 16 a clock an SM; without it (below) the rate did not move: a byte
+// permute, an add and the FMA a value, and each edge's shuffles, address
+// and load, issue at about half the SM's rate (estimated from the SASS).
+// A LOP3 and shift in place of the byte permute (more instructions) ran
+// 5 % slower; 8 edges' gathers a lane in flight (more registers, fewer
+// warps) 33 % slower (PERF.md).
 //
 // Design: K2's (spmm_csr.cu), with one byte a column.
 // - The work items are K2's row segments of at most seg_len edges
@@ -29,15 +39,22 @@
 // - Each lane owns VEC consecutive columns: a warp covers a slab of 32*VEC
 //   columns, 128 (VEC = 4, one 4-byte load an edge) or 256 (VEC = 8, one
 //   8-byte load). Slabs wider than one run as passes over the table, as in
-//   K2 (grid.y, dispatched x-fastest). The wrapper chooses the slab
-//   (ops/cuda_spmm_int8.py, SLAB): at the reddit shape 256 columns were
-//   30 % faster than 128, though a 128-column slab of its table (29.8 MB)
-//   fits the 50 MB L2 and the whole table (59.6 MB) does not: a pass costs
-//   each edge its CSR load, shuffles and loop, and 4-byte loads halve the
-//   bytes each load instruction brings (PERF.md).
+//   K2 (grid.y, dispatched x-fastest). Each column's sum is the same at
+//   either slab, term for term, so the two give the same bits. The wrapper
+//   chooses the slab (ops/cuda_spmm_int8.py, SLAB): a pass costs each edge
+//   its CSR loads, shuffles, address and loop again, and a 4-byte load
+//   brings half the bytes of an 8-byte one, so 128-column passes were 50 %
+//   slower at the cell and 43 % at the reddit shape, where that slab of the
+//   table fits the L2 and the whole table does not.
 // - A lane issues the gathers of 32/VEC edges (32 bytes) before their FMAs,
-//   through the read-only path (__ldg), and converts each byte to float32
-//   exactly with a sign-extending shift; each term is one fmaf.
+//   through the read-only path (__ldg).
+// - Each byte becomes float32 exactly without a conversion instruction: one
+//   XOR a 4-byte word flips the bytes' sign bits (each byte then holds
+//   q + 128), a byte permute sets one byte under the exponent of 2**23
+//   (the float 2**23 + q + 128) and an add of -(2**23 + 128) leaves q, with
+//   no rounding. So each term is the same fmaf(w, q, acc) as with the
+//   conversion, and the sums keep their bits (k7_ab.py holds them to the
+//   first build's).
 // - Under the column scale each output column is multiplied by scale[f]
 //   once, where the row is written: by the segment kernel for a row of one
 //   segment, by the finish pass (SCALE) for a split row.
@@ -53,6 +70,13 @@ using segplan::Plan;
 
 constexpr int kWarpsPerBlock = 8;
 
+// Byte i of u, which holds q + 128, as the float32 q: PRMT builds the float
+// 2**23 + q + 128 (0x4B0000 and the byte), and the add is exact.
+__device__ __forceinline__ float byte_value(uint32_t u, int i) {
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | i)) -
+         8388736.0f;
+}
+
 template <int VEC>
 struct GatherI8;
 
@@ -63,9 +87,10 @@ struct GatherI8<4> {
     return __ldg(reinterpret_cast<const unsigned int*>(p));
   }
   __device__ __forceinline__ static void fma(float w, Raw r, float* acc) {
+    const uint32_t u = r ^ 0x80808080u;   // each byte q + 128
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      acc[i] = fmaf(w, (float)((int32_t)(r << (24 - 8 * i)) >> 24), acc[i]);
+      acc[i] = fmaf(w, byte_value(u, i), acc[i]);
   }
 };
 

@@ -38,19 +38,33 @@ from maxk_tpu_torch.ops.cuda_spmm import _PLAIN_CHUNK_ELEMS, _plan, finish_plain
 from maxk_tpu_torch.ops.graph import DeviceCSR
 
 # Columns a warp covers in one pass over the table: 128 (4-byte loads) or
-# 256 (8-byte loads, D % 8 == 0). chip_smoke.py times both at the cell
-# (phase 23) and at the reddit shape (phase 20): 256 was 30 % faster there
-# in both scale modes, though its int8 table (59.6 MB) does not fit the
-# 50 MB L2 and a 128-column slab (29.8 MB) does (PERF.md).
+# 256 (8-byte loads, D % 8 == 0). The two give the same bits. chip_smoke.py
+# times both at the cell (phase 23) and at the reddit shape (phase 20); a
+# pass costs each edge its CSR loads, shuffles and loop again, so 128 took
+# 1.4-1.5 times as long at both, though at the reddit shape a 128-column
+# slab of the int8 table (29.8 MB) fits the 50 MB L2 and the whole table
+# (59.6 MB) does not (PERF.md).
 SLAB = 256
+# The float32 2**23 + 128: K7 puts q + 128 in the low byte of 2**23's bits.
+_MAGIC_BITS = 0x4B000000
+_MAGIC_BIAS = 8388736.0
+
+
+def int8_to_float(q: torch.Tensor) -> torch.Tensor:
+    """int8 q as float32, the way K7 converts it (no int-to-float
+    conversion): the byte with its sign bit flipped, q + 128, under the
+    exponent of 2**23, less 2**23 + 128. Exact: equal to q.float()."""
+    bits = (q.view(torch.uint8) ^ 0x80).to(torch.int32) | _MAGIC_BITS
+    return bits.view(torch.float32) - _MAGIC_BIAS
 
 
 def spmm_int8_plain(g: DeviceCSR, q: torch.Tensor, scale: torch.Tensor,
                     row_scale: bool) -> torch.Tensor:
     """K2's plain version reading int8: index_add_ of w[:, None] *
-    q[cols] into one float32 row per segment (chunked over edges), w =
-    vals (times scale[cols] under the row scale), then the plan's finish,
-    then the column scale."""
+    q[cols] (converted as K7 converts it, ``int8_to_float``) into one
+    float32 row per segment (chunked over edges), w = vals (times
+    scale[cols] under the row scale), then the plan's finish, then the
+    column scale."""
     plan = _plan(g)
     d, dev = q.shape[1], q.device
     lengths = torch.clamp(g.indptr[plan.seg_row.long() + 1] - plan.seg_start,
@@ -65,7 +79,7 @@ def spmm_int8_plain(g: DeviceCSR, q: torch.Tensor, scale: torch.Tensor,
         if row_scale:
             w = w * scale[cols]
         seg.index_add_(0, seg_of_edge[lo:lo + step],
-                       w[:, None] * q[cols].float())
+                       w[:, None] * int8_to_float(q[cols]))
     out = finish_plain(g, seg)
     return out if row_scale else out * scale
 

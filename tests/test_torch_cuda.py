@@ -27,8 +27,8 @@ version (it moves values, converts them with one rounding, and in its
 int8 mode computes the plain version's fma, IEEE quotient and rint). K7
 (the int8 SpMM) agrees with its plain version to the two-order bound of
 each row's sum, 2 (n_r + 1) 2**-24 sum_e |w_e q_e scale| (the + 1: the
-column scale's multiply), in both scale modes and slab widths, and two
-calls give the same bits.
+column scale's multiply), in both scale modes and slab widths; two
+calls give the same bits, and so do its two slab widths.
 """
 
 import dataclasses
@@ -466,6 +466,29 @@ def test_k6_bit_equal_to_plain(cuda_device, k, d, dtype, sel, out):
     assert torch.equal(y.view(bits), ref.view(bits))
 
 
+@pytest.mark.parametrize("sel", [torch.int32, torch.uint8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(1, 16), (16, 16), (8, 61), (32, 61),
+                                 (32, 256), (128, 256), (32, 1024),
+                                 (200, 1024)])
+def test_k6_int8_widths(cuda_device, k, d, dtype, sel):
+    """K6's int8 mode where its layout changes: L = 1, 4, 16, 32 lanes a
+    row (groups of 32, 8, 2, 1 rows; 777 rows leave a partial group), k
+    past the kInt8Prefetch pairs a lane holds in registers (16 at D = 16,
+    32 at D = 61, 128 at D = 256, 200 at D = 1024), element stores at
+    D = 61. q and scale bit-equal to the plain version."""
+    if sel == torch.uint8 and d > 256:
+        pytest.skip("uint8 selectors index D <= 256")
+    x = _x("normal", 777, d, seed=k * d).to(cuda_device)
+    values, selector = cbsr_topk_forward(x, k)
+    values, selector = values.to(dtype), selector.to(sel)
+    q, scale = cbsr_expand_int8(values, selector, d)
+    q_ref, s_ref = cbsr_expand_int8_plain(values, selector, d)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_ref)
+    assert torch.equal(scale.view(torch.int32), s_ref.view(torch.int32))
+
+
 def test_k6_drops_out_of_range_selectors(cuda_device):
     v = torch.tensor([[1.0, -2.0, 3.0], [4.0, 5.0, -6.0]],
                      device=cuda_device)
@@ -511,6 +534,28 @@ def test_k7_matches_plain(cuda_device, kind, d, row_scale, slab):
     assert torch.all(out[empty] == 0)
     again = spmm_int8_csr(g, q, scale, row_scale, slab)
     assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+
+
+@pytest.mark.parametrize("row_scale", [False, True])
+@pytest.mark.parametrize("d", [8, 264, 512])
+@pytest.mark.parametrize("kind", ["power_law", "star"])
+def test_k7_slabs_bit_identical(cuda_device, kind, d, row_scale):
+    """A column's sum is the same terms in the same order at either slab,
+    so 128- and 256-column passes give the same bits."""
+    if kind == "star":
+        g = DeviceCSR.from_csr(_split_graph(kind, 8), cuda_device,
+                               seg_len=8)
+    else:
+        g = DeviceCSR.from_csr(_graph(kind, 300, seed=d), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 1)
+    q = torch.randint(-128, 128, (g.n_nodes, d), generator=gen,
+                      device=cuda_device, dtype=torch.int8)
+    n = g.n_nodes if row_scale else d
+    scale = torch.rand(n, generator=gen, device=cuda_device) + 0.01
+    a = spmm_int8_csr(g, q, scale, row_scale, 128)
+    b = spmm_int8_csr(g, q, scale, row_scale, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_k6_k7_count_launches_and_refuse(cuda_device):

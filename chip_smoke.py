@@ -162,7 +162,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  MB), an f32 maxk_spgemm and dx held to the hub-free
                  graph's, 5 SAGE steps on each route, first losses within
                  rtol 1e-4 of the hub-free ones
-Each new phase prints its seconds. The kernels line comes last but two.
+ 25 tp           tensor parallelism at phase 9's cell, full width: 4 ranks
+                 as 2 graph x 2 model (--model_parallel 2; rank = graph
+                 rank * 2 + model rank), all on cuda:0 over gloo (NCCL
+                 where there are 4 cards), every Dense layer
+                 column-parallel; 3 f32 steps at dropout 0 within rtol
+                 1e-5 of phase 18's one device, rank 0's gradient slices
+                 rtol 1e-5, atol 1e-6; 3 bf16 steps (host clock) and an
+                 eval, K1-K4 and K6 per step as on phase 18's ranks; each
+                 rank's bytes of parameters and Adam state against one
+                 device's; python -m maxk_tpu_torch.bench.scaling_bench
+                 --devices 2 4 --model-parallel 2 --project as a
+                 subprocess, one row and one projection a size
+Each new phase prints its seconds. The kernels line comes last but two;
+each entry's dist_launches and tp_launches are phases 18's and 25's.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing any result.
 """
@@ -1115,12 +1128,13 @@ def dist_rank(group, job: dict) -> dict:
     return out
 
 
-def dist_phase(ds, bundle, cfg) -> dict:
+def dist_phase(ds, bundle, cfg) -> tuple:
     """Phase 18: 2 ranks of DistTrainer at phase 9's cell, one card each
     over NCCL where there are two, else both on cuda:0 over gloo; the f32
     step held to one device; the CLI's --n_devices 2. Returns the ranks'
     launches of the main path (the bf16 runs of DIST_RUNS), by kernel
-    id."""
+    id, and the one-device f32 reference (3 losses, the first step's
+    gradients), which phase 25 reuses."""
     from maxk_tpu_torch.parallel.launch import spawn
     from maxk_tpu_torch.train.loop import Trainer
     t0 = time.perf_counter()
@@ -1201,8 +1215,175 @@ def dist_phase(ds, bundle, cfg) -> dict:
                   seconds=round(time.perf_counter() - t2, 3)),
          ranks_seconds=round(ranks_s, 3),
          seconds=round(time.perf_counter() - t0, 3))
-    return {n: sum(r[model][1][n] for r in ranks
-                   for model, _, _ in DIST_RUNS) for n in DIST_SAGE_STEP}
+    return ({n: sum(r[model][1][n] for r in ranks
+                    for model, _, _ in DIST_RUNS) for n in DIST_SAGE_STEP},
+            dict(losses=ref_losses, grads=ref_grads))
+
+
+# Phase 25's grid: 4 ranks as 2 graph shards x 2 model slices.
+TP_GRID = (2, 2)
+
+
+def tp_rank(group, job: dict) -> dict:
+    """Phase 25 on one rank of 4 (run by parallel.launch.spawn): the ranks
+    as a (2 graph x 2 model) grid, every Dense layer column-parallel; 3
+    f32 steps at dropout 0 (rank 0's gradients after the first
+    all-reduce), then 3 bf16 steps and an eval with every count set to 0
+    just before and read just after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from maxk_tpu_torch.parallel.dist_train import DistTrainer
+    from maxk_tpu_torch.parallel.mesh import make_grid
+    from maxk_tpu_torch.parallel.partition import shard_bundle
+    from maxk_tpu_torch.parallel.tensor import ColumnParallelLinear
+    ds, cfg = job["ds"], {**job["cfg"], "model_parallel": TP_GRID[1]}
+    grid = make_grid(group, TP_GRID[1])
+    dev, rank = group.device, group.rank
+    counted = kernel_counters()
+
+    def counts() -> dict:
+        return {name: fn.launches for name, fn in counted.items()}
+
+    out = dict(rank=rank, device=str(dev), backend=group.backend,
+               graph=(grid.graph.rank, grid.graph.size),
+               model=(grid.model.rank, grid.model.size))
+    t0 = time.perf_counter()
+    mean = shard_bundle(ds.csr, grid.graph.size, ("mean",), symmetric=True)
+    out["shard_bundle_s"] = time.perf_counter() - t0
+
+    f32 = DistTrainer(types.SimpleNamespace(
+        **{**cfg, "compute_dtype": "float32", "dropout": 0.0}), ds, grid,
+        sharded=mean)
+    losses = [float(f32.train_step())]
+    if rank == 0:
+        out["f32_grads"] = {n: p.grad.cpu().numpy()
+                            for n, p in f32.model.named_parameters()}
+        out["columns"] = {f"{n}.weight": (m.lo, m.hi)
+                          for n, m in f32.model.named_modules()
+                          if isinstance(m, ColumnParallelLinear)}
+    losses += [float(f32.train_step()) for _ in range(2)]
+    out["f32_losses"] = losses
+    del f32
+
+    trainer = DistTrainer(types.SimpleNamespace(**cfg), ds, grid,
+                          sharded=mean)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counted.values():
+        fn.launches = 0
+    steps = []
+    for _ in range(3):
+        before = counts()
+        t1 = time.perf_counter()
+        loss = float(trainer.train_step())
+        torch.cuda.synchronize(dev)
+        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3, loss=loss,
+                          **{n: c - before[n] for n, c in counts().items()}))
+    logits = trainer.eval_logits()
+    torch.cuda.synchronize(dev)
+    out.update(steps=steps, launches=counts(),
+               logits_ok=bool(tuple(logits.shape) == (ds.csr.n_nodes,
+                                                       ds.num_classes)
+                              and torch.isfinite(logits).all()),
+               state_bytes=trainer.state_nbytes(),
+               peak_mem_gib=round(torch.cuda.max_memory_allocated(dev)
+                                  / 2**30, 3))
+    return out
+
+
+def tp_phase(ds, cfg, ref: dict) -> dict:
+    """Phase 25: tensor parallelism at phase 9's cell, full width, on 4
+    ranks as 2 graph x 2 model (``--model_parallel 2``), all on cuda:0
+    over gloo (NCCL where there are 4 cards): 3 f32 losses at dropout 0
+    within rtol 1e-5 of phase 18's one device, rank 0's gradients (its
+    rows of each Dense weight's) within rtol 1e-5, atol 1e-6; 3 bf16
+    steps (host clock), K1-K4 and K6 launched as on the 1-D ranks; each
+    rank's parameters and Adam state against one device's; then
+    ``python -m maxk_tpu_torch.bench.scaling_bench --devices 2 4
+    --model-parallel 2 --project`` on the card. Returns the ranks'
+    launches of the bf16 steps, by kernel id."""
+    from maxk_tpu_torch.parallel.launch import spawn
+    from maxk_tpu_torch.train.loop import model_from_config
+    t0 = time.perf_counter()
+    n_ranks = TP_GRID[0] * TP_GRID[1]
+    backend = "nccl" if torch.cuda.device_count() >= n_ranks else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn(tp_rank, n_ranks, f"file://{tmp}/store", "cuda",
+                      args=(dict(ds=ds, cfg=vars(cfg)),))
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:
+        check(r["backend"] == backend,
+              f"rank {r['rank']} ran over {r['backend']}, not {backend}")
+        check(r["graph"] == (r["rank"] // TP_GRID[1], TP_GRID[0])
+              and r["model"] == (r["rank"] % TP_GRID[1], TP_GRID[1]),
+              f"rank {r['rank']}: grid place {r['graph']}, {r['model']}")
+        check(np.allclose(r["f32_losses"], ref["losses"], rtol=1e-5,
+                          atol=0),
+              f"rank {r['rank']}: f32 losses {r['f32_losses']} vs one "
+              f"device {ref['losses']}")
+        check(r["logits_ok"], f"rank {r['rank']}: bad eval logits")
+        for s in r["steps"]:
+            check(math.isfinite(s["loss"])
+                  and all(s[n] == c for n, c in DIST_SAGE_STEP.items()),
+                  f"rank {r['rank']}: step {s} vs {DIST_SAGE_STEP}")
+    grads, cols = ranks[0]["f32_grads"], ranks[0]["columns"]
+    grad_err = {}
+    for n, g in ref["grads"].items():
+        if n in cols:
+            g = g[slice(*cols[n])]
+        grad_err[n] = float(np.max(np.abs(grads[n] - g)
+                                   / (1e-6 + 1e-5 * np.abs(g))))
+    check(grads.keys() == ref["grads"].keys()
+          and max(grad_err.values()) <= 1.0,
+          f"rank 0's gradient slices off one device's: error/tolerance "
+          f"{grad_err}")
+    full = model_from_config(cfg, ds)
+    # One device: the parameters and Adam's two moments, float32.
+    one_device_bytes = 3 * 4 * sum(p.numel() for p in full.parameters())
+    del full
+
+    # The sweep CLI on the card: one spawn a size.
+    t1 = time.perf_counter()
+    sweep = subprocess.run(
+        [sys.executable, "-m", "maxk_tpu_torch.bench.scaling_bench",
+         "--devices", "2", "4", "--model-parallel", "2", "--project"],
+        cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600)
+    lines = [json.loads(x) for x in sweep.stdout.splitlines()
+             if x.startswith("{")]
+    rows = [x for x in lines if "step_ms" in x]
+    projections = [x["projection"] for x in lines if "projection" in x]
+    check(sweep.returncode == 0 and [x["devices"] for x in rows] == [2, 4]
+          and len(projections) == 2
+          and all(math.isfinite(x["loss"]) for x in rows),
+          f"scaling_bench: exit {sweep.returncode}, rows {rows}\n"
+          f"{(sweep.stdout + sweep.stderr)[-3000:]}")
+    emit("tp", config="4x256 maxk k=32 norm dropout=0.5 bf16 on 4 ranks "
+         "as 2 graph x 2 model", V=ds.csr.n_nodes, E=ds.csr.n_edges,
+         backend=backend, devices=[r["device"] for r in ranks],
+         grid=[dict(rank=r["rank"], graph=r["graph"], model=r["model"])
+               for r in ranks],
+         shard_bundle_s=[r["shard_bundle_s"] for r in ranks],
+         f32_losses=[r["f32_losses"] for r in ranks],
+         f32_losses_one_device=ref["losses"],
+         f32_tolerance="losses rtol 1e-5; rank 0's gradient slices after "
+                       "the first all-reduce rtol 1e-5, atol 1e-6",
+         f32_grad_err_over_tol=max(grad_err.values()),
+         bf16_steps=[r["steps"] for r in ranks],
+         median_step_ms=[statistics.median(s["ms"] for s in r["steps"])
+                         for r in ranks],
+         launches=[r["launches"] for r in ranks],
+         launches_per_step={n: ranks[0]["steps"][-1][n]
+                            for n in DIST_SAGE_STEP},
+         state_bytes=[r["state_bytes"] for r in ranks],
+         state_bytes_one_device=one_device_bytes,
+         peak_mem_gib=[r["peak_mem_gib"] for r in ranks],
+         ranks_seconds=round(ranks_s, 3),
+         scaling_bench=dict(exit=sweep.returncode, rows=rows,
+                            projections=projections,
+                            seconds=round(time.perf_counter() - t1, 3)),
+         seconds=round(time.perf_counter() - t0, 3))
+    return {n: sum(r["launches"][n] for r in ranks) for n in DIST_SAGE_STEP}
 
 
 @contextlib.contextmanager
@@ -3025,7 +3206,7 @@ def main() -> int:
     bench_launches = harness_phase(csr, counted, k4_ms)
 
     # -- 18 row-partitioned training on 2 ranks ----------------------------
-    dist_launches = dist_phase(ds, bundle, cfg)
+    dist_launches, dist_ref = dist_phase(ds, bundle, cfg)
 
     # -- 19 the CBSR-operand forward (CBSR_GATHER_MODE, K5) -----------------
     k5 = gather_phase(split_graphs, g, x_full, gen, train,
@@ -3048,16 +3229,21 @@ def main() -> int:
         ds, bundle, cfg, train, counted,
         {"mask": steps[0]["loss"], "cbsr": steps_c[0]["loss"]})
 
+    # -- 25 tensor parallelism on a (2 graph x 2 model) grid -------------
+    tp_launches = tp_phase(ds, cfg, dist_ref)
+
     # The launches on the main paths: K1 and K2 in SAGE (phase 9), GCN, GIN
     # and GNN_res (phase 14), the harness (phase 17), the reddit steps
     # (phase 20) and the golden rows (phase 21); K3 and K4 in the CBSR
     # route (phase 10) and the harness; all four on 2 ranks (phase 18).
+    # The TP grid (phase 25) runs K1-K4 and K6 on every rank.
     main_launches = {n: launches[n] + bench_launches[n] + dist_launches[n]
                      + sum(m["launches"][n] for m in model_steps.values())
                      + reddit_launches[n] + golden_launches[n]
-                     for n in ("k1", "k2")}
+                     + tp_launches[n] for n in ("k1", "k2")}
     main_launches.update({n: launches_c[n] + bench_launches[n]
-                          + dist_launches[n] for n in ("k3", "k4")})
+                          + dist_launches[n] + tp_launches[n]
+                          for n in ("k3", "k4")})
     # K5 on its path: SAGE and the harness under the flag (phase 19).
     main_launches["k5"] = k5["launches"]["k5"]
     # K6 in the CBSR route (phase 10), the harness, the ranks, SAGE under
@@ -3066,7 +3252,7 @@ def main() -> int:
     # (phase 20).
     main_launches["k6"] = (launches_c["k6"] + bench_launches["k6"]
                            + dist_launches["k6"] + k5["launches"]["k6"]
-                           + paths_launches["k6"])
+                           + paths_launches["k6"] + tp_launches["k6"])
     for n in ("k6_int8", "k7"):
         main_launches[n] = paths_launches[n] + reddit_launches[n]
 
@@ -3119,6 +3305,10 @@ def main() -> int:
               main_launches["k7"], k7["err"], k7["ms"], k7["plain_ms"],
               *k7["bound"], k7["library_ms"], dist_launches["k7"]),
     ]
+    # Each kernel's launches on the TP grid (phase 25), by its id.
+    for e, kid in zip(kernels, ("k1", "k2", "k3", "k4", "k1_wide",
+                                "k4_wide", "k5", "k6", "k6_int8", "k7")):
+        e["tp_launches"] = tp_launches[kid]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,12 @@ synthetic_graph(131072, 50.0, seed=123), E = 13,107,200, into a bfloat16
 x of 256 columns read 0.8427 ms, 7.96e12 bytes/s, on an NVIDIA H100
 80GB HBM3 at a 700 W power limit (chip_smoke.py phase 17, which measures
 it again on every run).
+
+``project_multichip`` projects row-partitioned training over several
+H100s joined by NVLink (``maxk_tpu/bench/roofline.py``'s projection,
+rewritten for the port's shards): the compute term of an aggregation is
+the bytes K2 moves on the largest shard (``sharded_k2_bytes``) over K2's
+rate, the comm term the halo rows a shard receives over NVLink.
 """
 
 from __future__ import annotations
@@ -161,3 +167,84 @@ def gather_probe(x: torch.Tensor, cols: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gather_probe launch failed: CUDA error {err}")
     return out
+
+
+# NVLink 4 on an H100 SXM5: 900 GB/s total bandwidth a GPU, both ways
+# together (NVIDIA H100 Tensor Core GPU data sheet), so 450 GB/s each way:
+# the rate at which a card receives its halo rows from its peers.
+NVLINK_GBPS = 450.0
+
+# K2's rate at the cell (PERF.md section 5): 6.71 GB of bfloat16 rows
+# gathered a launch (E = 13,107,200, D = 256) in 1.1227 ms, 6.00e12
+# bytes/s, on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+# (chip_smoke.py phase 12). scaling_bench measures it again on a sweep
+# that holds one graph shard.
+K2_BYTES_PER_S = 6.00e12
+
+
+def k2_bytes(n_nodes: int, n_edges: int, dim: int, plan: SegmentPlan,
+             value_bytes: int = 2, x_in_bytes: int = 4) -> int:
+    """The bytes one K2 call moves: the gathered rows (E * D *
+    value_bytes) and what ``stream_bytes`` counts on the graph's plan."""
+    return (n_edges * dim * value_bytes
+            + stream_bytes(n_nodes, n_edges, dim, plan, value_bytes,
+                           x_in_bytes))
+
+
+def sharded_k2_bytes(sg, dim: int, value_bytes: int = 2,
+                     x_in_bytes: int = 4) -> int:
+    """``k2_bytes`` of the largest shard of a ShardedGraph
+    (``parallel/partition.py``), each on its own segment plan: a step
+    waits for its slowest shard."""
+    return max(k2_bytes(g.n_nodes, g.n_edges, dim, SegmentPlan.build(g),
+                        value_bytes, x_in_bytes) for g in sg.shards)
+
+
+def project_multichip(n_shards: int, compute_ms_per_agg: float,
+                      compute1_ms_per_agg: float, halo_rows: int, dim: int,
+                      k: int, n_aggregations: int,
+                      nvlink_gbps: float = NVLINK_GBPS) -> dict:
+    """First-order scaling projection of row-partitioned training over
+    ``n_shards`` cards, for a step of ``n_aggregations`` aggregations
+    (2 a layer: forward and transpose).
+
+    Per aggregation:
+      compute_ms: K2 on a shard (``sharded_k2_bytes`` over K2's rate);
+        compute1_ms the same on the whole graph (one card);
+      comm_ms: the rows a card receives, (S-1) * halo_rows, over
+        ``nvlink_gbps``: bfloat16 rows of 2 * dim bytes (the dense
+        exchange), or 3 * k bytes (the CBSR wire: bfloat16 values and
+        uint8 selectors).
+    Two bounds: serial (compute + comm) and overlap (max of the two: the
+    local rows' work does not wait for the exchange). Returns the JAX
+    projection's keys: ms a step, speedup and efficiency against one
+    card, for each wire, and the wire's reduction.
+    """
+    peer_rows = (n_shards - 1) * halo_rows
+    comm_dense_ms = peer_rows * dim * 2 / (nvlink_gbps * 1e9) * 1e3
+    comm_cbsr_ms = peer_rows * 3 * k / (nvlink_gbps * 1e9) * 1e3
+    comp_ms, comp1_ms = compute_ms_per_agg, compute1_ms_per_agg
+
+    def step(comm_ms):
+        serial = n_aggregations * (comp_ms + comm_ms)
+        overlap = n_aggregations * max(comp_ms, comm_ms)
+        t1 = n_aggregations * comp1_ms
+        return dict(
+            step_serial_ms=round(serial, 4),
+            step_overlap_ms=round(overlap, 4),
+            speedup_serial=round(t1 / serial, 3) if serial else float("inf"),
+            speedup_overlap=round(t1 / overlap, 3) if overlap else
+            float("inf"),
+            efficiency_serial=round(t1 / serial / n_shards, 3) if serial
+            else 1.0,
+            efficiency_overlap=round(t1 / overlap / n_shards, 3) if overlap
+            else 1.0)
+
+    return dict(
+        n_shards=n_shards,
+        compute_ms_per_agg=round(comp_ms, 4),
+        comm_dense_ms_per_agg=round(comm_dense_ms, 4),
+        comm_cbsr_ms_per_agg=round(comm_cbsr_ms, 4),
+        wire_reduction=round(comm_dense_ms / comm_cbsr_ms, 2)
+        if comm_cbsr_ms else float("inf"),
+        dense=step(comm_dense_ms), cbsr=step(comm_cbsr_ms))

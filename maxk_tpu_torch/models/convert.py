@@ -5,7 +5,9 @@ flax Dense kernels are (in, out) and torch ``Linear.weight`` is
 ``weight``. The flax models' scalar and vector params that belong to no
 submodule (GCN's and GNNRes's ``gconv_bias_{i}``, GIN's ``gin_eps_{i}``)
 are top-level leaves, and so are torch's. BatchNorm's ``batch_stats``
-(``mean``, ``var``) are the port's running buffers.
+(``mean``, ``var``) are the port's running buffers. A rank of tensor
+parallelism takes its own columns of every kernel (``shard``), as JAX's
+``P(None, "model")`` places them.
 """
 
 from __future__ import annotations
@@ -16,12 +18,15 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from maxk_tpu_torch.parallel.mesh import split_bounds
+
 _LEAF_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 _TOP_LEVEL = re.compile(r"(gconv_bias|gin_eps)_\d+$")
 
 
-def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
+def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None,
+                     shard: Optional[tuple] = None
                      ) -> dict[str, torch.Tensor]:
     """flax ``params`` (nested dicts of arrays) and optional
     ``batch_stats`` -> a torch state_dict.
@@ -43,6 +48,9 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
                 raise ValueError(f"unknown flax param {module}/{leaf}")
             arr = np.array(value, dtype=np.float32)
             if leaf == "kernel":
+                if shard is not None:
+                    arr = arr[:, slice(*split_bounds(arr.shape[1],
+                                                     shard[1], shard[0]))]
                 arr = np.ascontiguousarray(arr.T)
             out[f"{module}.{_LEAF_NAMES[leaf]}"] = torch.from_numpy(arr)
     for module, stats in (batch_stats or {}).items():

@@ -27,7 +27,9 @@ refused (TypeError), as ``jnp.dtype`` refuses it there.
 Graphs are call-time arguments (a ``GraphBundle``), never parameters.
 On a rank of row-partitioned training (``maxk_tpu_torch/parallel/``) the
 bundle holds the rank's row shards, whose ops exchange rows themselves,
-and GNNRes's BatchNorm sums its statistics over the ranks.
+and GNNRes's BatchNorm sums its statistics over the ranks. Under tensor
+parallelism ``parallel/tensor.py::shard_model`` makes every Linear of a
+built model column-parallel.
 """
 
 from __future__ import annotations
@@ -227,9 +229,12 @@ class _GNN(nn.Module):
     def load_flax_params(self, params, batch_stats=None) -> None:
         """Load a flax model's ``params`` tree (nested dicts of arrays)
         and, where it has one, its ``batch_stats`` collection. Without
-        ``batch_stats`` the running statistics stay as they are."""
+        ``batch_stats`` the running statistics stay as they are. A model
+        made column-parallel (``parallel/tensor.py::shard_model``) takes
+        its own columns of each kernel."""
         from maxk_tpu_torch.models.convert import params_from_flax
-        state = params_from_flax(params, batch_stats)
+        state = params_from_flax(params, batch_stats,
+                                 shard=getattr(self, "tp_shard", None))
         if batch_stats is None:
             state.update({key: buf for key, buf in self.named_buffers()})
         self.load_state_dict(state, strict=True)

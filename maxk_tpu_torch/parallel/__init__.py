@@ -1,4 +1,5 @@
-"""Row-partitioned multi-device training on torch.distributed: process
-groups (``mesh``), the halo exchange (``halo``), row sharding
-(``partition``), the trainer (``dist_train``) and the CLI's launcher
-(``launch``)."""
+"""Row-partitioned and tensor-parallel multi-device training on
+torch.distributed: process groups and the (graph x model) grid
+(``mesh``), the halo exchange (``halo``), row sharding (``partition``),
+column-parallel Dense layers (``tensor``), the trainer (``dist_train``)
+and the CLI's launcher (``launch``)."""

@@ -8,6 +8,9 @@ row-partitioned over ``--n_devices`` ranks.
 
   # 2 ranks in this process's children, over gloo on the CPU:
   python -m maxk_tpu_torch.train --device cpu --n_devices 2 ...
+  # 4 ranks as 2 graph shards x 2 model slices (tensor parallelism):
+  python -m maxk_tpu_torch.train --device cpu --n_devices 4 \\
+      --model_parallel 2 ...
   # 4 ranks as 2 processes of 2, which meet at the coordinator:
   python -m maxk_tpu_torch.train --n_devices 4 --distributed \\
       --num_processes 2 --process_id 0 --coordinator host:port ...
@@ -89,9 +92,10 @@ def run(config, group=None):
         mode = ("halo exchange" if trainer.sharded._any.halo is not None
                 else "all-gather" if trainer.sharded._any.gather
                 else "no exchange (no edge crosses a shard)")
-        logger.info(f"distributed trainer: {group.size} ranks over "
-                    f"{group.backend}, rank 0 on {trainer.device}, "
-                    f"{trainer.sharded.rows_per_shard} rows a rank, {mode}")
+        logger.info(f"distributed trainer: {group.size} ranks "
+                    f"({trainer.grid.describe()}) over {group.backend}, "
+                    f"rank 0 on {trainer.device}, "
+                    f"{trainer.sharded.rows_per_shard} rows a shard, {mode}")
 
     if config.evaluate:
         # Evaluate-only: restore the latest checkpoint under the given

@@ -7,8 +7,9 @@ utils/config.py names) plus ``--device``.
 ``--num_processes`` such processes meet at ``--coordinator``, process
 ``--process_id`` holding ranks ``process_id * local_device_count`` on.
 ``--no_halo`` all-gathers the operand instead of the halo exchange.
-``--model_parallel`` > 1 (tensor-parallel Dense layers) is not ported
-yet and is refused (ROADMAP.md, queue 1: "tensor parallelism").
+``--model_parallel M`` > 1 makes the N ranks a (N/M graph x M model)
+grid, every Dense layer column-parallel over the model axis
+(``parallel/tensor.py``), as the JAX flag does; N must be divisible by M.
 """
 
 from __future__ import annotations
@@ -83,7 +84,10 @@ class TrainConfig(argparse.ArgumentParser):
                           help="Ranks of the graph axis, the job's world "
                                "size (0/1: one device, no process group)")
         self.add_argument("--model_parallel", type=int, default=1,
-                          help="Tensor-parallel size (1 only; not ported)")
+                          help="Tensor-parallel size M: the --n_devices "
+                               "ranks form an (n_devices/M graph x M "
+                               "model) grid, every Dense layer's columns "
+                               "split over the M model ranks")
         self.add_argument("--distributed", action="store_true",
                           default=False,
                           help="Several processes, which meet at "
@@ -125,10 +129,11 @@ class TrainConfig(argparse.ArgumentParser):
                 f"{config.hidden_dim}: MaxK keeps k of the hidden "
                 f"channels, so k must be <= hidden_dim (the reference's "
                 f"torch.topk would fail the same way at the first layer)")
-        if config.model_parallel > 1:
-            self.error("--model_parallel > 1: tensor-parallel Dense layers "
-                       "are not ported yet (ROADMAP.md, queue 1: \"tensor "
-                       "parallelism\")")
+        if config.model_parallel < 1 or (
+                max(1, config.n_devices) % config.model_parallel):
+            self.error(f"--n_devices={config.n_devices} not divisible by "
+                       f"model_axis_size={config.model_parallel} "
+                       f"(--model_parallel)")
         self._check_layout(config)
         if config.path is None:
             ts = time.strftime("%Y%m%d_%H%M%S")

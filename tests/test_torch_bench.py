@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.bench import direct_interface as jax_di
 from maxk_tpu.bench import harness as jax_harness
 from maxk_tpu.bench.timing import TimingResult as JaxTimingResult

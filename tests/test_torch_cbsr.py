@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.ops import cbsr as jax_cbsr
 from maxk_tpu.ops.pallas_gather import cbsr_gather_pallas
 from maxk_tpu.ops.pallas_topk import cbsr_topk_pallas

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import maxk_tpu
 from maxk_tpu.models.models import (GraphBundle as JaxGraphBundle,
                                     build_model as jax_build_model)

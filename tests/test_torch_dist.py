@@ -15,6 +15,9 @@ port), runs ``torch_dist_ranks.run`` and returns each rank's results:
   dropout 0 and float32 are within rtol 1e-5 of ``Trainer``'s, and so
   are the gradients after the first all-reduce (atol 1e-6). V = 301
   pads the last shard, whose padded row GNN_res's BatchNorm leaves out;
+- the same 2 ranks as a (1 graph x 2 model) grid (tensor parallelism,
+  ``--model_parallel 2``) give the same losses, and each rank's rows of
+  every Dense weight's gradient are one device's rows;
 - 1-layer SAGE from the JAX package's init (``params_from_flax``) is
   within rtol 1e-4 (``test_torch_train.py``'s) of the JAX
   ``DistTrainer`` on a 2-device mesh of the conftest's virtual devices,
@@ -39,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.data.datasets import make_synthetic_dataset as jax_dataset
 from maxk_tpu.parallel.dist_train import DistTrainer as JaxDistTrainer
 from maxk_tpu.parallel.mesh import make_graph_mesh
@@ -234,20 +238,72 @@ def test_sharded_gather_mode_bit_equal_one_device(ranks, inputs, graph,
         _bits(x.grad.numpy()))
 
 
-@pytest.mark.parametrize("model", ["sage", "gcn", "gin", "gnn_res"])
-def test_dist_trainer_matches_trainer(ranks, inputs, model):
-    tr = Trainer(_Cfg(model=model), inputs["dataset"])
+MODELS = ["sage", "gcn", "gin", "gnn_res"]
+
+
+def one_device(cfg, dataset) -> dict:
+    """Trainer's 3 losses, and its gradients after the first step."""
+    tr = Trainer(cfg, dataset)
     losses = [float(tr.train_step())]
-    grads = {n: p.grad.numpy() for n, p in tr.model.named_parameters()}
+    grads = {n: p.grad.numpy().copy() for n, p in tr.model.named_parameters()}
     losses += [float(tr.train_step()) for _ in range(2)]
+    return dict(losses=losses, grads=grads)
+
+
+@pytest.fixture(scope="module")
+def single(inputs) -> dict:
+    """One device's run of each family, for the 2 ranks and the grid."""
+    return {m: one_device(_Cfg(model=m), inputs["dataset"]) for m in MODELS}
+
+
+def check_against_one_device(got: dict, want: dict, columns=None) -> None:
+    """3 losses within rtol 1e-5 of one device's, and the gradients after
+    the first all-reduce within rtol 1e-5, atol 1e-6; on a grid each
+    column-parallel weight's gradient is one device's rows
+    ``columns[name]`` = (lo, hi)."""
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    assert got["grads"].keys() == want["grads"].keys()
+    for n, g in want["grads"].items():
+        if columns and n in columns:
+            g = g[slice(*columns[n])]
+        np.testing.assert_allclose(got["grads"][n], g, rtol=1e-5,
+                                   atol=1e-6, err_msg=n)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_dist_trainer_matches_trainer(ranks, single, model):
     for r in ranks:
-        got = r["trainers"][model]
-        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
-        assert got["grads"].keys() == grads.keys()
-        for n, want in grads.items():
-            np.testing.assert_allclose(got["grads"][n], want, rtol=1e-5,
-                                       atol=1e-6, err_msg=n)
+        check_against_one_device(r["trainers"][model], single[model])
+    losses = single[model]["losses"]
     assert losses[-1] < losses[0]
+
+
+def weight_columns(cfg, dataset, rank: int, size: int) -> dict:
+    """{weight name: (lo, hi)} of a model rank's rows of every Linear
+    weight of cfg's model, split as torch.tensor_split splits them."""
+    from maxk_tpu_torch.train.loop import model_from_config
+    full = model_from_config(cfg, dataset)
+    out = {}
+    for name, m in full.named_modules():
+        if isinstance(m, torch.nn.Linear):
+            idx = torch.tensor_split(torch.arange(m.out_features), size)[rank]
+            out[f"{name}.weight"] = (int(idx[0]), int(idx[-1]) + 1)
+    return out
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_one_by_two_grid_matches_trainer(ranks, single, inputs, model):
+    """The 2 ranks as (1 graph x 2 model): every Dense layer column-
+    parallel, the 5 classes split 3 + 2."""
+    for r in ranks:
+        grid = r["grid"]
+        assert grid["graph"] == (0, 1) and grid["model"] == (r["rank"], 2)
+        assert grid["contiguous"]
+        cols = weight_columns(_Cfg(model=model), inputs["dataset"],
+                              r["rank"], 2)
+        assert cols["lin_out.weight"] == [(0, 3), (3, 5)][r["rank"]]
+        check_against_one_device(grid["trainers"][model], single[model],
+                                 cols)
 
 
 def test_dist_sage_matches_jax_dist_trainer(ranks, jax_sage):

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.data.datasets import make_synthetic_dataset as jax_dataset
 from maxk_tpu.models.models import (GraphBundle as JaxGraphBundle,
                                     build_model as jax_build_model)

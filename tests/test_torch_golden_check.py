@@ -6,6 +6,7 @@ import math
 
 import pytest
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import chip_smoke as cs
 
 

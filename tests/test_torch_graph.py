@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.data import datasets as jax_datasets
 from maxk_tpu.data import loaders as jax_loaders
 from maxk_tpu.ops.graph import CSRGraph as JaxCSRGraph

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.parallel.partition import shard_graph as jax_shard_graph
 from maxk_tpu_torch.ops.cuda_spmm import spmm_csr_plain
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu_torch.ops import cuda_spmm_int8
 from maxk_tpu_torch.ops.cuda_spmm_int8 import int8_to_float, spmm_int8_plain
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR

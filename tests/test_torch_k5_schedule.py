@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu_torch.ops.cuda_spgemm_cbsr import (pack_records,
                                                  pack_records_plain)
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.ops.maxk import maxk as jax_maxk, maxk_mask as jax_maxk_mask
 from maxk_tpu.ops.pallas_topk import maxk_pallas
 from maxk_tpu_torch.ops.cuda_topk import maxk_forward, maxk_forward_plain

@@ -8,9 +8,12 @@ statistics) differ.
 
 The same holds on the CBSR route of the fused aggregation, which
 MAXK_FUSED_MASK=0 selects in both packages: the ``cbsr_env`` fixture sets
-it before any flax model is traced and clears JAX's caches around the
-test.
+it before any flax model is traced. JAX reads it while tracing, so its
+caches are cleared whenever the route differs from the last trace's
+(``_route``), and once after the module.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.models.models import (GraphBundle as JaxGraphBundle,
                                     build_model as jax_build_model)
 from maxk_tpu.train.loop import masked_loss as jax_masked_loss
@@ -51,6 +55,7 @@ def _models(name, norm, nonlinear, feat_drop=0.0):
 
 
 def _init_pair(data, name, norm, nonlinear):
+    _route()
     csr, port_csr, x, _, _ = data
     flax_model, model = _models(name, norm, nonlinear)
     graphs = JaxGraphBundle.for_model(csr, name)
@@ -61,12 +66,28 @@ def _init_pair(data, name, norm, nonlinear):
     return flax_model, graphs, params, model, port_graphs
 
 
+_LAST_ROUTE = [None]
+
+
+def _route() -> None:
+    """Clear JAX's caches when the environment's route differs from the
+    last trace's: cases on one route share their traces."""
+    route = "cbsr" if os.environ.get("MAXK_FUSED_MASK") == "0" else "mask"
+    if route != _LAST_ROUTE[0]:
+        jax.clear_caches()
+        _LAST_ROUTE[0] = route
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches_after_module():
+    yield
+    jax.clear_caches()
+    _LAST_ROUTE[0] = None
+
+
 @pytest.fixture
 def cbsr_env(monkeypatch):
     monkeypatch.setenv("MAXK_FUSED_MASK", "0")
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
 
 
 def _check_eval_logits(data, name, norm, nonlinear):

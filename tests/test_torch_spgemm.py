@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import maxk_tpu
 from maxk_tpu.ops import spgemm as jax_spgemm
 from maxk_tpu.ops.graph import build_tiled_graph

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.ops.graph import CSRGraph as JaxCSRGraph, build_tiled_graph
 from maxk_tpu.ops.pallas_spmm import spmm_pallas
 from maxk_tpu.ops.spmm import spmm as jax_spmm, spmm_t as jax_spmm_t
@@ -72,8 +73,20 @@ def graph(graph_name):
 
 
 def _dev(g, seg_len: int = SEG_LEN) -> DeviceCSR:
-    return DeviceCSR.from_csr(CSRGraph(g.indptr, g.indices, g.values), "cpu",
-                              seg_len=seg_len)
+    return _dev_cached(id(g), g, seg_len)
+
+
+_DEVS = {}
+
+
+def _dev_cached(key, g, seg_len: int) -> DeviceCSR:
+    """One DeviceCSR (and segment plan) per graph and segment length:
+    the cases of a graph share it (no op changes one). The graph is kept
+    beside it, so its id is not reused."""
+    if (key, seg_len) not in _DEVS:
+        _DEVS[key, seg_len] = (g, DeviceCSR.from_csr(
+            CSRGraph(g.indptr, g.indices, g.values), "cpu", seg_len=seg_len))
+    return _DEVS[key, seg_len][1]
 
 
 def _x(n, d, seed=0):

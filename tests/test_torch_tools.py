@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import maxk_tpu.data.datasets as jax_datasets
 import maxk_tpu.train.loop as jax_loop
 from maxk_tpu.data import warp4 as jax_warp4

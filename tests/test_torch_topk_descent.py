@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.ops.pallas_topk import cbsr_topk_pallas, maxk_pallas
 from maxk_tpu_torch.ops import cuda_topk
 from maxk_tpu_torch.ops.cuda_topk import (_keep_at, _threshold_full,

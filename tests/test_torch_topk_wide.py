@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.ops import cbsr as jax_cbsr
 from maxk_tpu.ops.maxk import maxk as jax_maxk, maxk_mask as jax_maxk_mask
 from maxk_tpu.ops.pallas_topk import cbsr_topk_pallas, maxk_pallas

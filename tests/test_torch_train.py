@@ -12,6 +12,7 @@ such tie within 20 steps.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -23,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.data.datasets import make_synthetic_dataset as jax_dataset
 from maxk_tpu.train import metrics as jax_metrics
 from maxk_tpu.train.loop import Trainer as JaxTrainer
+from maxk_tpu.train.loop import TrainState
 from maxk_tpu.train.loop import masked_loss as jax_masked_loss
 from maxk_tpu.train.optim import make_optimizer as jax_make_optimizer
 from maxk_tpu_torch.data.datasets import make_synthetic_dataset
@@ -66,21 +69,69 @@ class _Cfg:
     device: str = "cpu"
 
 
+@functools.cache
 def _dataset(seed=3):
+    """Both packages' dataset, built once a seed (no trainer changes
+    one)."""
     kw = dict(n_nodes=300, avg_degree=8.0, n_classes=5, in_size=24,
               seed=seed)
     return jax_dataset(**kw), make_synthetic_dataset(**kw)
+
+
+@functools.cache
+def _jax_variables(model_key: tuple):
+    """The JAX Trainer's initial params and batch_stats for one model
+    configuration (``_model_key``), drawn once: cases that differ only
+    in their optimizer share them."""
+    state = JaxTrainer(_Cfg(**dict(model_key)), _dataset()[0]).init_state()
+    return state.params, state.batch_stats
+
+
+def _model_key(cfg) -> tuple:
+    """cfg's fields less the optimizer's, which init does not read."""
+    skip = {"w_lr", "w_weight_decay", "enable_lookahead", "path"}
+    return tuple((k, v) for k, v in dataclasses.asdict(cfg).items()
+                 if k not in skip)
+
+
+def _jax_init_state(ref, cfg) -> TrainState:
+    """ref.init_state(), with the params of an equal model shared."""
+    params, batch_stats = _jax_variables(_model_key(cfg))
+    return TrainState(params=params, batch_stats=batch_stats,
+                      opt_state=ref.optimizer.init(params),
+                      epoch=jnp.zeros((), jnp.int32))
+
+
+_LAST_ROUTE = [None]
+
+
+def _route() -> None:
+    """Clear JAX's caches when the environment's MAXK_FUSED_MASK route
+    differs from the last trace's (JAX reads it while tracing): cases on
+    one route share their traces."""
+    route = "cbsr" if os.environ.get("MAXK_FUSED_MASK") == "0" else "mask"
+    if route != _LAST_ROUTE[0]:
+        jax.clear_caches()
+        _LAST_ROUTE[0] = route
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches_after_module():
+    yield
+    jax.clear_caches()
+    _LAST_ROUTE[0] = None
 
 
 @pytest.mark.parametrize("norm,lookahead,wd", [(True, False, 0.0),
                                                (True, True, 5e-4),
                                                (False, False, 5e-4)])
 def test_loss_trajectory_matches_jax(tmp_path, norm, lookahead, wd):
+    _route()
     jax_ds, ds = _dataset()
     cfg = _Cfg(path=str(tmp_path), norm=norm, enable_lookahead=lookahead,
                w_weight_decay=wd)
     ref = JaxTrainer(cfg, jax_ds)
-    state = ref.init_state()
+    state = _jax_init_state(ref, cfg)
     tr = Trainer(cfg, ds)
     tr.model.load_flax_params(jax.tree.map(np.asarray, state.params))
 
@@ -100,7 +151,7 @@ def test_cbsr_route_loss_trajectory_matches_jax(tmp_path, monkeypatch,
     # MAXK_FUSED_MASK=0 before either trainer is built: the JAX package
     # reads it while tracing its step.
     monkeypatch.setenv("MAXK_FUSED_MASK", "0")
-    jax.clear_caches()
+    _route()
     jax_ds, ds = _dataset()
     cfg = _Cfg(path=str(tmp_path), model=model, epochs=5)
     ref = JaxTrainer(cfg, jax_ds)
@@ -114,7 +165,6 @@ def test_cbsr_route_loss_trajectory_matches_jax(tmp_path, monkeypatch,
         state, loss = ref._jit_step(state, rng)
         ref_losses.append(float(loss))
         losses.append(float(tr.train_step()))
-    jax.clear_caches()
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
     assert losses[-1] < losses[0]
 
@@ -281,12 +331,14 @@ def test_profile_written_on_early_stop(tmp_path):
 
 
 @pytest.mark.parametrize("flag,says", [
-    (["--model_parallel", "2"], 'ROADMAP.md, queue 1: "tensor parallelism"'),
+    (["--n_devices", "4", "--model_parallel", "3"],
+     "not divisible by model_axis_size"),
     (["--num_processes", "2"], "only with --distributed"),
     (["--n_devices", "2", "--local_device_count", "3"], "is not")])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag, says):
-    """--model_parallel > 1 is not ported; a split of ranks over
-    processes that does not add up is refused."""
+    """A grid whose ranks the model axis does not divide (JAX's
+    make_graph_mesh refuses it in the same words), and a split of ranks
+    over processes that does not add up, are refused."""
     with pytest.raises(SystemExit):
         TrainConfig().parse_args(["--path", str(tmp_path), *flag])
     assert says in capsys.readouterr().err

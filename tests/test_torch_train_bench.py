@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import maxk_tpu.train.loop as jax_loop
 from maxk_tpu_torch.bench import train_bench
 

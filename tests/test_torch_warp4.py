@@ -11,6 +11,7 @@ import jax  # noqa: F401  (conftest keeps JAX on the CPU)
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu.data import warp4 as jax_warp4
 from maxk_tpu.ops.graph import CSRGraph as JaxCSRGraph
 from maxk_tpu_torch.data import warp4

@@ -9,6 +9,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from maxk_tpu_torch.ops import cuda_topk
 from maxk_tpu_torch.ops.cuda_topk import MAX_D, WIDE_SMEM_CAP, wide_plan
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from maxk_tpu_torch import obs
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR, resolve_device
 from maxk_tpu_torch.ops.maxk import maxk
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm, uses_cbsr
@@ -89,17 +90,23 @@ class GraphBundle:
 
         built = {}
         for norm in norms:
-            base = csr.normalize("none" if norm == "sum" else norm)
+            with obs.phase("build.normalize"):
+                base = csr.normalize("none" if norm == "sum" else norm)
+                mean_t = mean_transpose_values(csr) \
+                    if symmetric and norm == "mean" else None
             g = built[f"g_{norm}"] = build(base)
             if symmetric and norm in ("sum", "sym"):
                 t = g
-            elif symmetric and norm == "mean" and g.hub_ids is None:
-                t = dataclasses.replace(g, values=torch.from_numpy(
-                    mean_transpose_values(csr)).to(device))
-            elif symmetric and norm == "mean":
-                t = build(csr.with_values(mean_transpose_values(csr)))
+            elif mean_t is not None and g.hub_ids is None:
+                with obs.phase("build.upload"):
+                    t = dataclasses.replace(
+                        g, values=torch.from_numpy(mean_t).to(device))
+            elif mean_t is not None:
+                t = build(csr.with_values(mean_t))
             else:
-                t = build(base.transpose())
+                with obs.phase("build.transpose"):
+                    base_t = base.transpose()
+                t = build(base_t)
             built[f"g_{norm}_t"] = t
         return GraphBundle(**built)
 

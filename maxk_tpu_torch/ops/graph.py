@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from maxk_tpu_torch import obs
 from maxk_tpu_torch.data.warp4 import generate_warp4
 
 # K2's segment length: a warp of the SpMM kernel sums at most this many
@@ -264,36 +265,44 @@ class SegmentPlan:
     @staticmethod
     def build(csr: CSRGraph, seg_len: int = SEG_LEN,
               device="cpu") -> "SegmentPlan":
+        """The plan of ``csr`` on ``device``: set-up phase
+        ``build.segment_plan``, its copies to the device included."""
         if seg_len < 1:
             raise ValueError(f"segment length must be >= 1, got {seg_len}")
-        row = generate_warp4(csr, seg_len)[:, 0].astype(np.int64)
-        n_seg = row.shape[0]
-        per_row = np.bincount(row, minlength=csr.n_nodes)
-        first = np.cumsum(per_row) - per_row
-        # warp4's loc is int32; the start is recomputed in int64 so that
-        # E may pass 2**31.
-        start = csr.indptr[row] + (np.arange(n_seg) - first[row]) * seg_len
-        edges = np.minimum(csr.indptr[row + 1] - start, seg_len)
-        split = per_row > 1
-        in_split = split[row]
-        slot = np.full(n_seg, -1, np.int32)
-        slot[in_split] = np.arange(int(in_split.sum()), dtype=np.int32)
-        split_rows = np.nonzero(split)[0]
-        fin_row = np.concatenate([split_rows, np.nonzero(per_row == 0)[0]])
-        counts = np.zeros(fin_row.shape[0], np.int64)
-        counts[:split_rows.shape[0]] = per_row[split_rows]
-        fin_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        with obs.phase("build.segment_plan"):
+            row = generate_warp4(csr, seg_len)[:, 0].astype(np.int64)
+            n_seg = row.shape[0]
+            per_row = np.bincount(row, minlength=csr.n_nodes)
+            first = np.cumsum(per_row) - per_row
+            # warp4's loc is int32; the start is recomputed in int64 so
+            # that E may pass 2**31.
+            start = csr.indptr[row] \
+                + (np.arange(n_seg) - first[row]) * seg_len
+            edges = np.minimum(csr.indptr[row + 1] - start, seg_len)
+            split = per_row > 1
+            in_split = split[row]
+            slot = np.full(n_seg, -1, np.int32)
+            slot[in_split] = np.arange(int(in_split.sum()), dtype=np.int32)
+            split_rows = np.nonzero(split)[0]
+            fin_row = np.concatenate([split_rows,
+                                      np.nonzero(per_row == 0)[0]])
+            counts = np.zeros(fin_row.shape[0], np.int64)
+            counts[:split_rows.shape[0]] = per_row[split_rows]
+            fin_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(
+                np.int64)
 
-        def dev(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
-                device)
+            def dev(a, dtype):
+                return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+                    device)
 
-        return SegmentPlan(
-            seg_len=seg_len, seg_row=dev(row, np.int32),
-            seg_start=dev(start, np.int64),
-            seg_edges=dev(edges, np.int32), seg_slot=dev(slot, np.int32),
-            fin_row=dev(fin_row, np.int32), fin_ptr=dev(fin_ptr, np.int64),
-            n_partials=int(fin_ptr[-1]))
+            return SegmentPlan(
+                seg_len=seg_len, seg_row=dev(row, np.int32),
+                seg_start=dev(start, np.int64),
+                seg_edges=dev(edges, np.int32),
+                seg_slot=dev(slot, np.int32),
+                fin_row=dev(fin_row, np.int32),
+                fin_ptr=dev(fin_ptr, np.int64),
+                n_partials=int(fin_ptr[-1]))
 
     @property
     def n_segments(self) -> int:
@@ -357,16 +366,18 @@ class DeviceCSR:
         device = resolve_device(device)
         hub = _auto_hub(csr, hub_cols)
         hub_kw = {}
-        if hub is not None:
-            hub_ids, slab, residual = hub
-            hub_kw = dict(hub_ids=torch.from_numpy(hub_ids).to(device),
-                          hub_dense=torch.from_numpy(slab).to(device),
-                          n_hub_edges=csr.n_edges - residual.n_edges)
-            csr = residual
+        with obs.phase("build.upload"):
+            if hub is not None:
+                hub_ids, slab, residual = hub
+                hub_kw = dict(hub_ids=torch.from_numpy(hub_ids).to(device),
+                              hub_dense=torch.from_numpy(slab).to(device),
+                              n_hub_edges=csr.n_edges - residual.n_edges)
+                csr = residual
+            indptr, indices, values = (
+                torch.from_numpy(a).to(device)
+                for a in (csr.indptr, csr.indices, csr.values))
         return DeviceCSR(
-            indptr=torch.from_numpy(csr.indptr).to(device),
-            indices=torch.from_numpy(csr.indices).to(device),
-            values=torch.from_numpy(csr.values).to(device),
+            indptr=indptr, indices=indices, values=values,
             n_nodes=csr.n_nodes,
             plan=SegmentPlan.build(csr, seg_len, device),
             n_cols=n_cols, exchange=exchange, **hub_kw)

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from maxk_tpu_torch import obs
 from maxk_tpu_torch.data.datasets import Dataset
 from maxk_tpu_torch.models.models import MODEL_NORMS
 from maxk_tpu_torch.parallel.mesh import (GraphGroup, ProcessGrid,
@@ -126,29 +127,36 @@ class DistTrainer(FitLoop):
     def train_step(self) -> torch.Tensor:
         """One step on every rank; returns the global loss (on the
         device, the same on every rank)."""
-        self.model.train()
-        logits = self.model(self.graphs, self.features, training=True,
-                            generator=self.generator)
-        num, _ = masked_loss_terms(logits, self.labels, self.train_mask,
-                                   self.dataset.multilabel)
-        loss = num / torch.clamp(self.n_train, min=1.0)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        # One all-reduce: every gradient, then this rank's share of the
-        # loss.
-        params = list(self.model.parameters())
-        flat = torch.cat([
-            (p.grad if p.grad is not None else torch.zeros_like(p))
-            .reshape(-1) for p in params] + [loss.detach().reshape(1)])
-        dist.all_reduce(flat, group=self.group.group)
-        offset = 0
-        for p in params:
-            n = p.numel()
-            p.grad = flat[offset:offset + n].view_as(p)
-            offset += n
-        self.optimizer.step()
-        self.epoch += 1
-        return flat[-1]
+        with obs.span("maxk.step"):
+            self.model.train()
+            with obs.span("maxk.step.forward"):
+                logits = self.model(self.graphs, self.features,
+                                    training=True, generator=self.generator)
+                num, _ = masked_loss_terms(logits, self.labels,
+                                           self.train_mask,
+                                           self.dataset.multilabel)
+                loss = num / torch.clamp(self.n_train, min=1.0)
+            with obs.span("maxk.step.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            # One all-reduce: every gradient, then this rank's share of the
+            # loss.
+            with obs.span("maxk.step.allreduce"):
+                params = list(self.model.parameters())
+                flat = torch.cat([
+                    (p.grad if p.grad is not None else torch.zeros_like(p))
+                    .reshape(-1) for p in params]
+                    + [loss.detach().reshape(1)])
+                dist.all_reduce(flat, group=self.group.group)
+                offset = 0
+                for p in params:
+                    n = p.numel()
+                    p.grad = flat[offset:offset + n].view_as(p)
+                    offset += n
+            with obs.span("maxk.step.optimizer"):
+                self.optimizer.step()
+            self.epoch += 1
+            return flat[-1]
 
     @torch.no_grad()
     def eval_logits(self) -> torch.Tensor:

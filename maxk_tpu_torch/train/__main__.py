@@ -24,6 +24,7 @@ checkpoints and results.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
@@ -83,8 +84,12 @@ def run(config, group=None):
         f"classes={dataset.num_classes} multilabel={dataset.multilabel}")
 
     if group is None:
+        t0 = time.perf_counter()
         trainer = Trainer(config, dataset, logger=logger, writer=writer)
         logger.info(f"device={trainer.device}")
+        logger.info(f"Trainer built in {time.perf_counter() - t0:.3f} s: "
+                    + ", ".join(f"{name} {s:.3f} s" for name, s
+                                in trainer.build_phases.items()))
     else:
         from maxk_tpu_torch.parallel.dist_train import DistTrainer
         trainer = DistTrainer(config, dataset, group, logger=logger,

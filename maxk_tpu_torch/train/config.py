@@ -117,8 +117,9 @@ class TrainConfig(argparse.ArgumentParser):
                                "CUDA device) of the post-warm-up epochs "
                                "start+1 .. start+3 into {path}/profile")
         self.add_argument("--timing", action="store_true", default=False,
-                          help="Report per-step device time, and once the "
-                               "aggregation's share of a step")
+                          help="Time each train step (CUDA events on a CUDA "
+                               "device: the host waits for every step) and "
+                               "log it on the epoch's line")
         self.add_argument("--debug", action="store_true", default=False)
 
     def parse_args(self, args=None, namespace=None):

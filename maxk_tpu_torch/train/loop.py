@@ -6,11 +6,12 @@ evaluation every ``eval_every`` epochs with best-val tracking, patience
 early stop, checkpoint every ``save_every`` epochs and resume, and a
 ``final_results.json`` artifact — the JAX package's ``FitLoop`` and
 ``Trainer`` on one torch device. Under ``--timing`` each step is timed
-with CUDA events (host clock on the CPU), and once, after the first
-post-warm-up step, so are L forward aggregations, to log their share of
-the step. Under ``--profile`` a ``torch.profiler`` trace of the
-post-warm-up epochs (CPU, and CUDA on a CUDA device) goes to
-``{path}/profile``, as the JAX package's ``jax.profiler`` trace does.
+with CUDA events (host clock on the CPU). Under ``--profile`` a
+``torch.profiler`` trace of the post-warm-up epochs (CPU, and CUDA on a
+CUDA device) goes to ``{path}/profile``, as the JAX package's
+``jax.profiler`` trace does; it holds the step's and the evaluation's
+spans (``maxk_tpu_torch/obs.py``). ``Trainer.build_phases`` holds the
+host seconds of the constructor's set-up phases.
 """
 
 from __future__ import annotations
@@ -24,10 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import profiler
 
+from maxk_tpu_torch import obs
 from maxk_tpu_torch.data.datasets import Dataset
 from maxk_tpu_torch.models.models import GraphBundle, build_model
 from maxk_tpu_torch.ops.graph import resolve_device
-from maxk_tpu_torch.ops.spmm import spmm
 from maxk_tpu_torch.train import metrics as metrics_lib
 from maxk_tpu_torch.train.checkpoint import CheckpointManager
 from maxk_tpu_torch.train.optim import make_optimizer
@@ -93,35 +94,19 @@ class FitLoop:
                         extra: dict) -> None:
         ckpt.save(step, self.state_blob(extra))
 
-    @torch.no_grad()
-    def aggregation_probe(self, step_s: float) -> None:
-        """Log the aggregation's share of a train step: L forward
-        aggregations on the model's graph at (V, hidden_dim), as the JAX
-        package's probe reports it (on a rank, its rows and exchange)."""
-        g = self.graphs.g_mean or self.graphs.g_sym or self.graphs.g_sum
-        h = torch.ones(g.n_nodes, self.config.hidden_dim, device=self.device)
-        cd = getattr(self.config, "compute_dtype", "bfloat16")
-        spmm(g, h, cd)                                 # warm-up
-
-        def layers():
-            for _ in range(self.config.hidden_layers):
-                spmm(g, h, cd)
-
-        _, agg_s = self._timed(layers)
-        if self.logger:
-            self.logger.info(
-                f"Aggregation time: {agg_s*1e3:.1f} ms of "
-                f"{step_s*1e3:.1f} ms step "
-                f"({100.0*agg_s/max(step_s, 1e-9):.1f}% — forward only; "
-                f"backward aggregation roughly doubles it)")
-
     def evaluate_masks(self):
         """(train, val, test) metric triple."""
-        logits = self.eval_logits().float().cpu().numpy()
-        ds = self.dataset
-        return tuple(
-            metrics_lib.evaluate_logits(logits, ds.labels, m, ds.metric)
-            for m in (ds.train_mask, ds.val_mask, ds.test_mask))
+        with obs.span("maxk.eval"):
+            with obs.span("maxk.eval.forward"):
+                logits = self.eval_logits()
+            with obs.span("maxk.eval.to_host"):
+                logits = logits.float().cpu().numpy()
+            with obs.span("maxk.eval.metrics"):
+                ds = self.dataset
+                return tuple(
+                    metrics_lib.evaluate_logits(logits, ds.labels, m,
+                                                ds.metric)
+                    for m in (ds.train_mask, ds.val_mask, ds.test_mask))
 
     def _timed(self, fn):
         """(fn(), seconds): CUDA events on a CUDA device, else the host
@@ -198,8 +183,6 @@ class FitLoop:
             if profile_epochs and epoch == profile_epochs[0]:
                 prof = self._start_profile()
             loss, step_s = self._timed_step()
-            if step_s is not None and epoch == start_epoch + 1:
-                self.aggregation_probe(step_s)
             if prof is not None and epoch + 1 == profile_epochs[1]:
                 self._stop_profile(prof)
                 prof = None
@@ -288,7 +271,10 @@ class FitLoop:
 
 
 class Trainer(FitLoop):
-    """Model, optimizer, train step, evaluation and the fit loop."""
+    """Model, optimizer, train step, evaluation and the fit loop.
+
+    ``build_phases``: host seconds of each set-up phase of the
+    constructor (``obs.BUILD_PHASES``), also ``obs.last_build()``."""
 
     def __init__(self, config, dataset: Dataset, logger=None, writer=None,
                  graphs: Optional[GraphBundle] = None, device=None):
@@ -299,40 +285,52 @@ class Trainer(FitLoop):
         self.device = resolve_device(
             device if device is not None else getattr(config, "device", None))
 
-        self.graphs = graphs if graphs is not None else \
-            GraphBundle.for_model(dataset.csr, config.model,
-                                  symmetric=getattr(dataset, "symmetric",
-                                                    False),
-                                  device=self.device)
-        self.model = model_from_config(config, dataset).to(self.device)
-        self.optimizer = make_optimizer(
-            self.model.parameters(), config.w_lr, config.w_weight_decay,
-            enable_lookahead=getattr(config, "enable_lookahead", False))
-        # Dropout bits: one generator on the device, saved in checkpoints.
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            config.seed + 1)
-        self.epoch = 0
+        with obs.building() as self.build_phases:
+            self.graphs = graphs if graphs is not None else \
+                GraphBundle.for_model(dataset.csr, config.model,
+                                      symmetric=getattr(dataset, "symmetric",
+                                                        False),
+                                      device=self.device)
+            with obs.phase("build.model"):
+                self.model = model_from_config(config, dataset).to(
+                    self.device)
+                self.optimizer = make_optimizer(
+                    self.model.parameters(), config.w_lr,
+                    config.w_weight_decay,
+                    enable_lookahead=getattr(config, "enable_lookahead",
+                                             False))
+            # Dropout bits: one generator on the device, saved in
+            # checkpoints.
+            self.generator = torch.Generator(device=self.device).manual_seed(
+                config.seed + 1)
+            self.epoch = 0
 
-        self.features = torch.from_numpy(dataset.features).to(self.device)
-        labels = torch.from_numpy(dataset.labels)
-        self.labels = labels.to(self.device)
-        self.train_mask = torch.from_numpy(dataset.train_mask).to(
-            self.device)
+            with obs.phase("build.upload"):
+                self.features = torch.from_numpy(dataset.features).to(
+                    self.device)
+                self.labels = torch.from_numpy(dataset.labels).to(
+                    self.device)
+                self.train_mask = torch.from_numpy(dataset.train_mask).to(
+                    self.device)
 
     # -- steps ----------------------------------------------------------------
 
     def train_step(self) -> torch.Tensor:
         """One full-graph step; returns the loss (still on the device)."""
-        self.model.train()
-        logits = self.model(self.graphs, self.features, training=True,
-                            generator=self.generator)
-        loss = masked_loss(logits, self.labels, self.train_mask,
-                           self.dataset.multilabel)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        self.epoch += 1
-        return loss.detach()
+        with obs.span("maxk.step"):
+            self.model.train()
+            with obs.span("maxk.step.forward"):
+                logits = self.model(self.graphs, self.features,
+                                    training=True, generator=self.generator)
+                loss = masked_loss(logits, self.labels, self.train_mask,
+                                   self.dataset.multilabel)
+            with obs.span("maxk.step.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with obs.span("maxk.step.optimizer"):
+                self.optimizer.step()
+            self.epoch += 1
+            return loss.detach()
 
     @torch.no_grad()
     def eval_logits(self) -> torch.Tensor:

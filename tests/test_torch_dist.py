@@ -24,6 +24,9 @@ port), runs ``torch_dist_ranks.run`` and returns each rank's results:
   at V = 256, where the JAX package pads no row;
 - a checkpoint written after 2 steps at dropout 0.5 resumes to the
   uninterrupted run's third loss.
+- under the profiler each rank's step holds the spans of
+  ``maxk_tpu_torch/obs.py``: forward, backward, the all-reduce and the
+  optimizer inside ``maxk.step``.
 
 The CLI's 2-process ``--distributed`` split gives the same loss lines as
 1 process of 2 ranks (``tests/test_multihost.py`` mirrored).
@@ -167,6 +170,21 @@ def _bits(a):
 def test_ranks_ran_on_gloo(ranks):
     assert [r["rank"] for r in ranks] == [0, 1]
     assert {r["backend"] for r in ranks} == {"gloo"}
+
+
+def test_dist_step_spans(ranks):
+    """Each rank's step: ``maxk.step`` holding forward, backward, the
+    gradients' all-reduce and the optimizer, in that order."""
+    for r in ranks:
+        (lo, hi, name), *children = r["spans"]
+        assert name == "maxk.step"
+        assert [n for _, _, n in children] == [
+            "maxk.step.forward", "maxk.step.backward",
+            "maxk.step.allreduce", "maxk.step.optimizer"]
+        last = lo
+        for s, e, _ in children:
+            assert last <= s <= e <= hi
+            last = e
 
 
 @pytest.mark.parametrize("halo", [True, False], ids=["halo", "gather"])

@@ -269,9 +269,10 @@ def test_cli_trains_three_epochs(tmp_path):
     assert res.epochs_run == 3 and len(res.history) == 3
     assert (tmp_path / "final_results.json").exists()
     log = (tmp_path / "synthetic.log").read_text()
-    # --timing: the aggregation's share of the step, once.
-    assert log.count("Aggregation time: ") == 1
-    assert "ms step (" in log and "backward aggregation" in log
+    # The Trainer's set-up phases, once; --timing: the step's time.
+    assert log.count("Trainer built in ") == 1
+    assert "build.normalize " in log and "build.segment_plan " in log
+    assert " | step " in log
 
 
 @pytest.mark.parametrize("model", ["gcn", "gin", "gnn_res"])
@@ -316,6 +317,7 @@ def test_cli_profile_writes_trace(tmp_path):
     (trace,) = _traces(tmp_path)
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert any(e.get("name") == "maxk.step.forward" for e in events)
     assert "Profile trace in " in (tmp_path / "synthetic.log").read_text()
 
 

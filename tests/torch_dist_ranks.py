@@ -12,6 +12,7 @@ import types
 
 import numpy as np
 import torch
+from torch import profiler
 
 from maxk_tpu_torch.ops import spgemm as spgemm_module
 from maxk_tpu_torch.ops.graph import CSRGraph
@@ -139,11 +140,22 @@ def _rows_contiguous(grid, inputs) -> bool:
         return tr.model.lin_in(tr.features).is_contiguous()
 
 
+def _step_spans(group, inputs) -> list:
+    """(name, start, end) of the ``maxk.`` spans of one SAGE step under
+    the profiler, by start."""
+    tr = DistTrainer(_config(inputs), inputs["dataset"], group)
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU]) as p:
+        tr.train_step()
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in p.events() if e.name.startswith("maxk."))
+
+
 def run(group, inputs) -> dict:
     # The same 2 ranks as a (1 graph x 2 model) grid.
     grid = make_grid(group, 2)
     return dict(rank=group.rank, backend=group.backend,
                 ops=_ops(group, inputs), trainers=_trainers(group, inputs),
+                spans=_step_spans(group, inputs),
                 from_jax=_from_jax(group, inputs),
                 resume=_resume(group, inputs),
                 grid=dict(graph=(grid.graph.rank, grid.graph.size),

@@ -14,9 +14,14 @@ The spans, each under the prefix ``maxk.``:
   ``maxk.step.allreduce`` (``DistTrainer`` only: the gradients'
   all-reduce and their unpacking) and ``maxk.step.optimizer``;
 - ``maxk.eval`` (``FitLoop.evaluate_masks``), which holds
-  ``maxk.eval.forward`` (``eval_logits()``), ``maxk.eval.to_host`` (the
-  logits to a host numpy array) and ``maxk.eval.metrics`` (the host's
-  three metrics).
+  ``maxk.eval.forward`` (``eval_logits()``), ``maxk.eval.to_host`` and
+  ``maxk.eval.metrics``. For ``micro_f1`` (every dataset but
+  ogbn-proteins) ``.to_host`` holds the reductions of the logits to
+  counts on their device (an argmax and one count a mask, or tp, fp and
+  fn a mask) and the one copy of those few int64 values to the host, the
+  evaluation's only synchronisation; ``.metrics`` holds the host's
+  divisions of the counts. For ``rocauc`` ``.to_host`` copies the logits
+  to a host numpy array and ``.metrics`` ranks them there.
 
 Backward kernels are launched from autograd's device thread while the
 main thread waits inside ``maxk.step.backward``, so their launch times
@@ -44,6 +49,11 @@ phase. The phases (``BUILD_PHASES``):
 
 ``last_build()`` gives the phases of the most recently built Trainer in
 the process.
+
+``counters()`` gives the program's counters by name, live, as
+``ops.kernel_counters()`` gives the kernels' launches: a reader may zero
+one between readings. ``eval.metrics.device`` and ``eval.metrics.host``
+count evaluations by where their metrics ran.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ BUILD_PHASES = ("build.normalize", "build.transpose", "build.segment_plan",
                 "build.upload", "build.model")
 
 _NOOP = contextlib.nullcontext()
+_counters = {"eval.metrics.device": 0, "eval.metrics.host": 0}
 _local = threading.local()      # this thread's open build and phase
 _last: dict = {}
 
@@ -112,3 +123,13 @@ def last_build() -> dict:
     """The phases of the most recently built Trainer in the process, name
     -> seconds ({} before the first)."""
     return dict(_last)
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name``."""
+    _counters[name] += 1
+
+
+def counters() -> dict:
+    """Every counter, name -> count, live: the module's own dict."""
+    return _counters

@@ -21,6 +21,7 @@ import json
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import profiler
@@ -94,19 +95,52 @@ class FitLoop:
                         extra: dict) -> None:
         ckpt.save(step, self.state_blob(extra))
 
+    # The whole graph's labels, its three masks (3, V) and their sizes,
+    # on the device from the first micro_f1 evaluation on.
+    _eval_targets = None
+
     def evaluate_masks(self):
-        """(train, val, test) metric triple."""
+        """(train, val, test) metric triple. micro_f1 reduces the logits
+        to a few counts where they are and copies only those; rocauc
+        copies the logits to the host and ranks them there."""
+        ds = self.dataset
         with obs.span("maxk.eval"):
             with obs.span("maxk.eval.forward"):
                 logits = self.eval_logits()
+            if ds.metric != "micro_f1":
+                with obs.span("maxk.eval.to_host"):
+                    logits = logits.float().cpu().numpy()
+                with obs.span("maxk.eval.metrics"):
+                    obs.count("eval.metrics.host")
+                    return tuple(
+                        metrics_lib.evaluate_logits(logits, ds.labels, m,
+                                                    ds.metric)
+                        for m in (ds.train_mask, ds.val_mask, ds.test_mask))
             with obs.span("maxk.eval.to_host"):
-                logits = logits.float().cpu().numpy()
+                labels, masks, sizes = self._targets_on_device()
+                counts = metrics_lib.micro_f1_counts(logits, labels,
+                                                     masks).tolist()
             with obs.span("maxk.eval.metrics"):
-                ds = self.dataset
-                return tuple(
-                    metrics_lib.evaluate_logits(logits, ds.labels, m,
-                                                ds.metric)
-                    for m in (ds.train_mask, ds.val_mask, ds.test_mask))
+                obs.count("eval.metrics.device")
+                return tuple(metrics_lib.micro_f1_from_counts(c, n)
+                             for c, n in zip(counts, sizes))
+
+    def _targets_on_device(self):
+        """(labels, masks (3, V) bool, mask sizes) of the whole graph,
+        copied to the device at the first call and kept."""
+        if self._eval_targets is None:
+            ds = self.dataset
+            masks = np.stack([ds.train_mask, ds.val_mask, ds.test_mask])
+            self._eval_targets = (
+                self._graph_labels(),
+                torch.from_numpy(masks).to(self.device),
+                [int(np.count_nonzero(m)) for m in masks])
+        return self._eval_targets
+
+    def _graph_labels(self) -> torch.Tensor:
+        """The whole graph's labels on the device: a copy of the
+        dataset's."""
+        return torch.from_numpy(self.dataset.labels).to(self.device)
 
     def _timed(self, fn):
         """(fn(), seconds): CUDA events on a CUDA device, else the host
@@ -336,6 +370,10 @@ class Trainer(FitLoop):
     def eval_logits(self) -> torch.Tensor:
         self.model.eval()
         return self.model(self.graphs, self.features, training=False)
+
+    def _graph_labels(self) -> torch.Tensor:
+        """The training labels, already the whole graph's on the device."""
+        return self.labels
 
     # -- checkpoints -------------------------------------------------------------
 

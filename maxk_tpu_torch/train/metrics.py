@@ -2,7 +2,10 @@
 
 - compute_micro_f1: single-label -> plain argmax accuracy; multilabel ->
   micro-F1 with predictions at logit > 0 and truth at label > 0.5
-  (reference utils/general_utils.py:79-99).
+  (reference utils/general_utils.py:79-99). It counts on the host, then
+  micro_f1_from_counts does the arithmetic; micro_f1_counts makes the
+  same counts with torch ops where the logits are (the card), so only
+  the counts leave it.
 - rocauc: mean ROC-AUC over targets with both classes present — the ogb
   Evaluator('ogbn-proteins') definition used at
   reference maxk_gnn_dgl.py:41-53.
@@ -10,7 +13,10 @@
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+import torch
 
 
 def compute_micro_f1(logits: np.ndarray, y: np.ndarray,
@@ -21,14 +27,38 @@ def compute_micro_f1(logits: np.ndarray, y: np.ndarray,
         mask = np.asarray(mask)
         logits, y = logits[mask], y[mask]
     if y.ndim == 1:
-        if y.size == 0:
-            return 0.0
-        return float((logits.argmax(axis=-1) == y).sum() / y.shape[0])
+        hits = int((logits.argmax(axis=-1) == y).sum())
+        return micro_f1_from_counts((hits,), y.shape[0])
     y_pred = logits > 0
     y_true = y > 0.5
-    tp = int((y_true & y_pred).sum())
-    fp = int((~y_true & y_pred).sum())
-    fn = int((y_true & ~y_pred).sum())
+    return micro_f1_from_counts((int((y_true & y_pred).sum()),
+                                 int((~y_true & y_pred).sum()),
+                                 int((y_true & ~y_pred).sum())), y.shape[0])
+
+
+def micro_f1_counts(logits: torch.Tensor, labels: torch.Tensor,
+                    masks: torch.Tensor) -> torch.Tensor:
+    """compute_micro_f1's counts for each row of ``masks`` (M, V) bool, by
+    torch ops on the logits' device: (M, 1) int64 hits where ``labels`` is
+    (V,) (argmax, the first index on ties and a row's first NaN, as
+    ``np.argmax``), else (M, 3) tp, fp, fn of logit > 0 against
+    label > 0.5."""
+    if labels.dim() == 1:
+        per_node = (logits.argmax(dim=-1) == labels)[:, None]
+    else:
+        pred, true = logits > 0, labels > 0.5
+        per_node = torch.stack([(true & pred).sum(-1), (~true & pred).sum(-1),
+                                (true & ~pred).sum(-1)], dim=-1)
+    return (masks[:, :, None] * per_node).sum(dim=1)
+
+
+def micro_f1_from_counts(counts: Sequence[int], n: int) -> float:
+    """compute_micro_f1 of a mask of ``n`` nodes from its counts: (hits,)
+    single-label, (tp, fp, fn) multilabel. Counts below 2**53 divide to
+    the bits numpy's int64 / int gives."""
+    if len(counts) == 1:
+        return float(counts[0] / n) if n else 0.0
+    tp, fp, fn = counts
     if tp + fp == 0 or tp + fn == 0:
         return 0.0
     precision = tp / (tp + fp)

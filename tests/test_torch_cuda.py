@@ -28,7 +28,10 @@ int8 mode computes the plain version's fma, IEEE quotient and rint). K7
 (the int8 SpMM) agrees with its plain version to the two-order bound of
 each row's sum, 2 (n_r + 1) 2**-24 sum_e |w_e q_e scale| (the + 1: the
 column scale's multiply), in both scale modes and slab widths; two
-calls give the same bits, and so do its two slab widths.
+calls give the same bits, and so do its two slab widths. The evaluation's
+counts made on the card (``metrics.micro_f1_counts``: argmax with ties
+and a NaN, and multilabel tp, fp, fn) give the host path's metrics
+exactly (``tests/test_torch_eval.py``'s cases, and at the Reddit shape).
 """
 
 import dataclasses
@@ -57,6 +60,8 @@ from maxk_tpu_torch.ops.cuda_topk import (WIDE_SMEM_CAP, cbsr_topk_forward,
                                           maxk_forward_wide, wide_plan)
 from maxk_tpu_torch.ops.graph import SEG_LEN, CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
+from maxk_tpu_torch.train import metrics
+from test_torch_eval import counted_metrics, eval_case
 
 pytestmark = pytest.mark.cuda
 
@@ -578,3 +583,14 @@ def test_k6_k7_count_launches_and_refuse(cuda_device):
         spmm_int8_csr(g, q[:, :30].contiguous(), scale, True)
     with pytest.raises(ValueError, match="scale"):
         spmm_int8_csr(g, q, scale[:10], True)
+
+
+@pytest.mark.parametrize("v,c", [(300, 5), (232965, 41)])
+@pytest.mark.parametrize("multilabel", [False, True],
+                         ids=["single_label", "multilabel"])
+def test_eval_counts_on_the_card_equal_the_host_metrics(cuda_device,
+                                                        multilabel, v, c):
+    logits, labels, masks = eval_case(multilabel, v, c)
+    want = [metrics.evaluate_logits(logits, labels, m, "micro_f1")
+            for m in masks]
+    assert counted_metrics(logits, labels, masks, cuda_device) == want

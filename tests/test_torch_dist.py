@@ -55,6 +55,7 @@ from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
 from maxk_tpu_torch.ops.spmm import spmm_dense_oracle, spmm_t
 from maxk_tpu_torch.parallel.launch import spawn
+from maxk_tpu_torch.train import metrics
 from maxk_tpu_torch.train.loop import Trainer
 
 import torch_dist_ranks
@@ -339,6 +340,18 @@ def test_checkpoint_resume_gives_same_next_loss(ranks, inputs):
     # Every rank evaluates the same gathered logits.
     a, b = (r["resume"]["logits"] for r in ranks)
     assert a.shape == (V, 5) and np.array_equal(a, b)
+
+
+def test_dist_evaluate_masks_uses_every_node(ranks, inputs):
+    """Each rank's metrics count the whole graph's nodes, not its rows:
+    the host path's triple on the gathered logits."""
+    ds = inputs["dataset"]
+    for r in ranks:
+        want = tuple(
+            metrics.evaluate_logits(r["resume"]["logits"], ds.labels, m,
+                                    ds.metric)
+            for m in (ds.train_mask, ds.val_mask, ds.test_mask))
+        assert r["resume"]["metrics"] == want
 
 
 _EPOCH_RE = re.compile(r"Epoch (\d+)/\d+\| Loss ([\d.]+) \| "

@@ -88,7 +88,8 @@ def _from_jax(group, inputs, **over) -> list:
 
 def _resume(group, inputs, **over) -> dict:
     """SAGE at dropout 0.5: 3 steps straight through, against 2 steps, a
-    checkpoint, and a fresh trainer restored from it for the third."""
+    checkpoint, and a fresh trainer restored from it for the third; the
+    straight trainer's logits and its ``evaluate_masks()``."""
     cfg = _config(inputs, dropout=0.5, **over)
     ds = inputs["dataset"]
     straight = DistTrainer(cfg, ds, group)
@@ -104,6 +105,7 @@ def _resume(group, inputs, **over) -> dict:
     return dict(straight=losses, resumed=float(resumed.train_step()),
                 step=step, epoch=resumed.epoch, extra=extra,
                 logits=straight.eval_logits().numpy(),
+                metrics=straight.evaluate_masks(),
                 blob_shapes={k: tuple(v.shape)
                              for k, v in blob["model"].items()})
 

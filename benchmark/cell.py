@@ -10,6 +10,12 @@ three times; the reference follows those three steps from the same
 weights, data and dropout draws. In cells that evaluate, set-up first
 calls ``Trainer.evaluate_masks()`` once on the initial weights, which the
 benchmark drew; the reference evaluates the same weights.
+
+A model may hold state besides its parameters: tensors its
+``state_dict`` keeps as buffers, which training updates and Adam never
+sees (GNN_res's BatchNorm running statistics). Its reference names them
+in ``state_specs``; the benchmark draws them with the weights, loads both
+into the program, and compares each state tensor's change over the steps.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ class Inputs:
     labels: np.ndarray        # (V,)   int64
     masks: tuple              # train, val, test (V,) bool
     params: dict              # name -> float32 initial weights (host)
+    state: dict               # name -> float32 initial state (host)
     dropout_seed: int
     ref_graph: tuple          # (indptr, indices) as drawn, without loops
 
@@ -66,20 +73,26 @@ class Readings:
     grad_norms: dict          # name -> norm of the first step's gradient
     change_norms: dict        # name -> norm of the change over the steps
     eval_logits: Optional[torch.Tensor]   # (V, C), on the initial weights
+    state_changes: dict       # name -> a state tensor's change (host)
 
 
 def make_inputs(cell: Cell, seed: int, device) -> Inputs:
-    """The cell's graph, node data and initial weights, from ``seed`` on
-    ``device``, copied to the host."""
+    """The cell's graph, node data, initial weights and, after them, the
+    initial state of a model that has any, from ``seed`` on ``device``,
+    copied to the host. Without state the generator is not called again,
+    so a model without state gets the inputs it always had."""
     cfg, g = cell.config, cell.config["graph"]
     gen = torch.Generator(device=device).manual_seed(seed)
     graph = make_graph(g["n_nodes"], g["n_edges"], g["max_degree"],
                        g["degree_exponent"], gen)
     nodes = make_nodes(g["n_nodes"], g["n_features"], g["n_classes"],
                        tuple(g["split"]), gen)
-    specs = cell.reference().param_specs(cfg, g["n_features"],
-                                         g["n_classes"])
-    params = R.make_params(specs, gen)
+    ref = cell.reference()
+    sizes = (cfg, g["n_features"], g["n_classes"])
+    params = R.make_params(ref.param_specs(*sizes), gen)
+    state_specs = getattr(ref, "state_specs", None)
+    specs = state_specs(*sizes) if state_specs else {}
+    state = R.make_params(specs, gen) if specs else {}
     run_graph = add_self_loops(graph) if g["self_loops"] else graph
     return Inputs(
         indptr=run_graph.indptr.cpu().numpy(),
@@ -89,6 +102,7 @@ def make_inputs(cell: Cell, seed: int, device) -> Inputs:
         masks=tuple(m.cpu().numpy() for m in (
             nodes.train_mask, nodes.val_mask, nodes.test_mask)),
         params={k: v.cpu() for k, v in params.items()},
+        state={k: v.cpu() for k, v in state.items()},
         dropout_seed=seed + 1,
         # The reference gets the graph as drawn, and adds loops itself.
         ref_graph=(graph.indptr.cpu().numpy(),
@@ -138,7 +152,8 @@ class Program:
         self.build_s = time.perf_counter() - t0
         with torch.no_grad():
             self.trainer.model.load_state_dict(
-                {k: v.to(self.device) for k, v in inputs.params.items()},
+                {k: v.to(self.device)
+                 for k, v in {**inputs.params, **inputs.state}.items()},
                 strict=True)
         self.trainer.generator.manual_seed(inputs.dropout_seed)
         self.epochs = 0
@@ -160,7 +175,8 @@ class Program:
         weights, keeping the logits it used; then the first FIRST_STEPS
         epochs, through ``epoch``: the first step's gradient from Adam's
         state after it (m = (1 - beta1) g), and the change of each
-        parameter after the last."""
+        parameter and each state tensor (``model.named_buffers()``) after
+        the last."""
         tr, dev = self.trainer, self.device
         start = {k: v.to(dev) for k, v in inputs.params.items()}
         logits = None
@@ -187,7 +203,11 @@ class Program:
         changes = {name: float(torch.linalg.vector_norm(p.detach()
                                                         - start[name]))
                    for name, p in tr.model.named_parameters()}
-        return Readings([float(x) for x in losses], grads, changes, logits)
+        buffers = dict(tr.model.named_buffers())
+        state = {name: buffers[name].detach().float().cpu() - init
+                 for name, init in inputs.state.items()}
+        return Readings([float(x) for x in losses], grads, changes, logits,
+                        state)
 
     def free(self) -> None:
         del self.trainer
@@ -200,6 +220,9 @@ def reference(cell: Cell, inputs: Inputs, device, dense: str = "float32",
               half_batch: bool = False) -> Readings:
     """The plain reference's first steps from the same inputs and, in
     cells that evaluate, its evaluation forward on the initial weights.
+    Only the parameters are differentiated and stepped by Adam; the
+    model's ``forward`` gets one dict of parameters and state, and updates
+    the state in its training forwards (a dropout generator given).
     ``dense`` "tf32" is the control; ``half_batch`` plants a fault: the
     loss over the first half of the training nodes only."""
     R.no_tf32()
@@ -218,15 +241,18 @@ def reference(cell: Cell, inputs: Inputs, device, dense: str = "float32",
     p = {k: v.to(dev).clone().requires_grad_(True)
          for k, v in inputs.params.items()}
     start = {k: v.detach().clone() for k, v in p.items()}
+    state = {k: v.to(dev).clone() for k, v in inputs.state.items()}
+    weights = {**p, **state}   # the same tensors: both change in place
     m = {k: torch.zeros_like(v) for k, v in p.items()}
     v2 = {k: torch.zeros_like(v) for k, v in p.items()}
     gen = torch.Generator(device=dev).manual_seed(inputs.dropout_seed)
     losses, grad_norms, eval_logits = [], None, None
     if cell.traffic["eval_every"]:
         with torch.no_grad():
-            eval_logits = model.forward(p, adj, x, cfg, None, dense).cpu()
+            eval_logits = model.forward(weights, adj, x, cfg, None,
+                                        dense).cpu()
     for t in range(1, FIRST_STEPS + 1):
-        logits = model.forward(p, adj, x, cfg, gen, dense)
+        logits = model.forward(weights, adj, x, cfg, gen, dense)
         loss = torch.nn.functional.cross_entropy(logits[train],
                                                  labels[train])
         del logits
@@ -239,4 +265,5 @@ def reference(cell: Cell, inputs: Inputs, device, dense: str = "float32",
         del grads, loss
     changes = {k: float(torch.linalg.vector_norm(p[k].detach() - start[k]))
                for k in p}
-    return Readings(losses, grad_norms, changes, eval_logits)
+    state_changes = {k: state[k].cpu() - v for k, v in inputs.state.items()}
+    return Readings(losses, grad_norms, changes, eval_logits, state_changes)

@@ -13,6 +13,13 @@ against the plain reference's, number by number, each against the limit
 - ``eval_gap`` (cells that evaluate): the norm of the difference of the
   logits of the evaluation on the initial weights, which the benchmark
   drew, over the norm of the reference's evaluation forward on them.
+- ``state_gap`` (models with state, such as GNN_res's BatchNorm running
+  statistics): by the worst state tensor, the norm of the difference of
+  its changes over the steps, the program's less the reference's, over
+  the norm of the reference's change. An update left out reads 1.
+
+A cell compares the numbers its limits name. The others are read for
+the limits' choice; a model without state has no ``state_gap``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,9 @@ def numbers(got, want) -> dict:
                                         moved))}
     if want.eval_logits is not None:
         out["eval_gap"] = _rel(got.eval_logits, want.eval_logits)
+    if want.state_changes:
+        out["state_gap"] = max(_rel(got.state_changes[k], d)
+                               for k, d in want.state_changes.items())
     return out
 
 

@@ -8,7 +8,8 @@ reference; one line of the compared numbers. For the first CONTROL_SEEDS
 seeds also the control (the reference with TF32 Dense products) and the
 fault "half of the batch left out" (the reference's loss over half of the
 training nodes), each against the reference. A state left unchanged
-reads 1 on ``change_gap`` by its definition and is not run. Ends with the
+reads 1 on ``change_gap`` by its definition, and running statistics left
+unchanged 1 on ``state_gap``; neither is run. Ends with the
 largest program reading and the smallest control and fault readings of
 each number.
 """

@@ -123,21 +123,47 @@ def linear(x: torch.Tensor, w: torch.Tensor, b, dense: str) -> torch.Tensor:
     return y if b is None else y + b
 
 
+class _Masked(torch.autograd.Function):
+    """x times a 0/1 mask, forward and backward; only the mask, as bool,
+    is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, mask):
+        ctx.save_for_backward(mask)
+        return x * mask.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mask, = ctx.saved_tensors
+        return dy * mask.to(dy.dtype), None
+
+
+def masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return _Masked.apply(x, mask)
+
+
 def maxk(x: torch.Tensor, k: int) -> torch.Tensor:
     """x times the 0/1 mask of each row's k largest entries (ties kept
     from the first column on); the gradient passes where the mask is 1."""
-    thr = torch.topk(x.detach(), k, dim=1).values[:, -1:]
-    above = x.detach() > thr
-    tie = x.detach() == thr
-    room = k - above.sum(dim=1, keepdim=True)
-    mask = above | (tie & (torch.cumsum(tie.int(), dim=1) <= room))
-    return x * mask.to(x.dtype)
+    with torch.no_grad():
+        thr = torch.topk(x, k, dim=1).values[:, -1:]
+        above = x > thr
+        tie = x == thr
+        room = k - above.sum(dim=1, keepdim=True)
+        mask = above | (tie & (torch.cumsum(tie, dim=1, dtype=torch.int32)
+                               <= room))
+    return masked(x, mask)
+
+
+def keep_mask(x: torch.Tensor, p: float, gen: torch.Generator):
+    """Dropout's kept units: where a uniform draw of the generator is >=
+    p, one ``torch.rand`` of x's shape."""
+    return torch.rand(x.shape, generator=gen, device=x.device) >= p
 
 
 def dropout(x: torch.Tensor, p: float, gen: torch.Generator) -> torch.Tensor:
-    """Keep where a uniform draw of the generator is >= p, scaled by
-    1 / (1 - p): the draw is one ``torch.rand`` of x's shape."""
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    """Keep ``keep_mask``'s units, scaled by 1 / (1 - p)."""
+    keep = keep_mask(x, p, gen)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), device=x.device))
 
 

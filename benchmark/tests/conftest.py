@@ -1,5 +1,6 @@
 """Fixtures of the benchmark's tests: a copy of the benchmark's root at a
-size the CPU runs in seconds, and the card for the tests marked cuda."""
+size the CPU runs in seconds, with a GNN_res cell added, and the card for
+the tests marked cuda."""
 
 from __future__ import annotations
 
@@ -36,9 +37,67 @@ def small_root(dest: Path, graph: dict = SMALL_GRAPH) -> Path:
     return dest
 
 
+GNNRES_CELL = "gnnres-products.fit"
+
+# The GNN_res test cell's limits at SMALL_GRAPH on the CPU, from readings
+# over 15 seeds (1-12, 2**31, 2**31 + 3, 2**31 + 1234; the program's
+# largest, the control's and the half batch's smallest, every seed).
+# BatchNorm's E[x^2] - E[x]^2 cancels and MaxK flips at near ties, so
+# the program's readings spread more than in the cells without it; with
+# ``norm`` off they fall 10-100-fold. At CARD_GRAPH on the card the
+# program read at most 4.2e-5, 1.0e-3, 9.3e-3, 1.2e-3 and 1.0e-2 (seeds
+# 1-12), under the same limits.
+GNNRES_LIMITS = {
+    # program 6.2e-5 (seed 6; 1.7e-6 or less on the others); control
+    # 3.6e-4: the control's failure.
+    "loss1_gap": 2e-4,
+    # program 1.8e-3 (seed 6); control 7.4e-3, half batch 0.35.
+    "grad_gap": 4e-3,
+    # program 3.0e-2; the control (1.1e-2) and the half batch (6.2e-2) do
+    # not separate at 600 nodes; a frozen step reads 1.
+    "change_gap": 0.15,
+    # program 1.6e-3 (a MaxK flip, seed 2**31 + 3; 5e-6 or less on the
+    # others); control 1.0e-2; an evaluation on the batch's statistics
+    # reads far more.
+    "eval_gap": 5e-3,
+    # program 2.0e-2; control 3.7e-2, half batch 0.15; running statistics
+    # left unchanged read 1.
+    "state_gap": 0.15,
+}
+
+
+def add_gnnres_cell(root: Path, limits: dict) -> Path:
+    """Add to the root made by ``small_root`` a GNN_res configuration,
+    ``gnnres-maxk-products``: the products recipe's widths (``--model
+    gnn_res``: 3 x 256, k 32, dropout 0.5, BatchNorm, Adam 0.003; 100
+    features, 47 classes) on the root's graph; the cell ``GNNRES_CELL``
+    under fit traffic, reporting what ``sage-reddit.fit`` reports; and
+    ``limits`` as its limits."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    gcn = next(c for c in bench["configs"] if c["name"] == "gcn-maxk-products")
+    cfg = json.loads((root / gcn["file"]).read_text())
+    cfg.update(name="gnnres-maxk-products", model="gnn_res",
+               source=cfg["source"].replace("model gcn", "model gnn_res"))
+    path = "benchmark/configs/gnnres-maxk-products.json"
+    (root / path).write_text(json.dumps(cfg))
+    bench["configs"].append(dict(gcn, name=cfg["name"], source=cfg["source"],
+                                 file=path))
+    bench["workloads"].append({
+        "name": GNNRES_CELL, "config": cfg["name"], "traffic": "fit",
+        "chips": 1, "why": "a test cell: GNN_res, BatchNorm's state"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "sage-reddit.fit" in m.get("workloads", []):
+            m["workloads"].append(GNNRES_CELL)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    (root / "benchmark" / "limits" / f"{GNNRES_CELL}.json").write_text(
+        json.dumps(limits))
+    return root
+
+
 @pytest.fixture(scope="session")
 def small(tmp_path_factory) -> Path:
-    return small_root(tmp_path_factory.mktemp("bench_root"))
+    return add_gnnres_cell(small_root(tmp_path_factory.mktemp("bench_root")),
+                           GNNRES_LIMITS)
 
 
 @pytest.fixture

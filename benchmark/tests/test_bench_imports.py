@@ -51,12 +51,23 @@ def test_the_flag_compares_whole_names(monkeypatch):
     assert set(run.forbidden_modules()) == before | {"maxk_tpu"}
 
 
-def test_the_reference_loads_nothing_of_the_program():
-    got = _subprocess("""
+def test_the_reference_loads_nothing_of_the_program(tmp_path):
+    # The GNN_res cell's inputs and reference run too: a model with state.
+    got = _subprocess(f"""
 import json, sys
+from pathlib import Path
 import benchmark.reference.sage, benchmark.reference.gcn, benchmark.check
+import benchmark.reference.gnn_res
 import benchmark.counts.k2, benchmark.graphs.generate
-print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+from benchmark import cell
+from benchmark.spec import load_cell
+from benchmark.tests import conftest
+root = conftest.add_gnnres_cell(conftest.small_root(Path({str(tmp_path)!r})),
+                                conftest.GNNRES_LIMITS)
+c = load_cell(conftest.GNNRES_CELL, root)
+ref = cell.reference(c, cell.make_inputs(c, 7, "cpu"), "cpu")
+assert ref.state_changes and ref.eval_logits is not None
+print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """)
     assert not (FORBIDDEN | {"maxk_tpu_torch"}) & set(got)
 

@@ -1,22 +1,28 @@
 """A whole run of each cell on the CPU at a small graph, every width as
-configured: the result line's format, ``correct`` true; ``correct`` false
-with the timed path broken underneath (each fault the cell can have); and
-the control (the reference with TF32 Dense products in the program's
-place) failing the cell's limits on three seeds."""
+configured, the conftest's GNN_res cell among them: the result line's
+format, ``correct`` true; ``correct`` false with the timed path broken
+underneath (each fault the cell can have); the control (the reference
+with TF32 Dense products in the program's place) failing the cell's
+limits on three seeds; and the inputs of the cells whose model has no
+state drawn as they were before models could have state."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 
+import numpy as np
 import pytest
 import torch
 
+from benchmark import cell as bench_cell
 from benchmark import run as bench_run
 from benchmark import readings
 from benchmark.check import judge
 from benchmark.spec import load_cell
+from benchmark.tests.conftest import GNNRES_CELL
 
-CELLS = ("sage-reddit.fit", "gcn-products.train")
+CELLS = ("sage-reddit.fit", "gcn-products.train", GNNRES_CELL)
 SEED = 2**31 + 1234
 
 
@@ -88,10 +94,37 @@ def _altered_answer(monkeypatch):
     monkeypatch.setattr(Trainer, "eval_logits", altered)
 
 
+def _still_running_stats(monkeypatch):
+    """BatchNorm's running statistics never move: state_gap reads 1."""
+    from maxk_tpu_torch.models.models import BatchNorm
+    monkeypatch.setattr(BatchNorm, "momentum", 1.0)
+
+
+def _eval_batch_stats(monkeypatch):
+    """The evaluation normalises with the batch's statistics, not the
+    running ones, and leaves those as they were."""
+    from maxk_tpu_torch.models.models import BatchNorm
+    forward = BatchNorm.forward
+
+    def batch_stats(self, x, training, n_valid=None):
+        if training:
+            return forward(self, x, training, n_valid)
+        kept = self.running_mean.clone(), self.running_var.clone()
+        out = forward(self, x, True, n_valid)
+        self.running_mean.copy_(kept[0])
+        self.running_var.copy_(kept[1])
+        return out
+
+    monkeypatch.setattr(BatchNorm, "forward", batch_stats)
+
+
 FAULTS = [("sage-reddit.fit", _frozen_step), ("sage-reddit.fit", _half_batch),
           ("sage-reddit.fit", _altered_answer),
           ("gcn-products.train", _frozen_step),
-          ("gcn-products.train", _half_batch)]
+          ("gcn-products.train", _half_batch),
+          (GNNRES_CELL, _frozen_step), (GNNRES_CELL, _half_batch),
+          (GNNRES_CELL, _altered_answer), (GNNRES_CELL, _still_running_stats),
+          (GNNRES_CELL, _eval_batch_stats)]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS,
@@ -110,3 +143,35 @@ def test_control_fails_the_limits(small, name):
         assert judge(got["program"], cell.limits)[0], got["program"]
         assert not judge(got["control"], cell.limits)[0], got["control"]
         assert not judge(got["half_batch"], cell.limits)[0]
+        # Only a model with state has a state_gap.
+        assert ("state_gap" in got["program"]) \
+            == hasattr(cell.reference(), "state_specs")
+
+
+def _digest(inputs) -> str:
+    h = hashlib.sha256()
+    for a in (inputs.indptr, inputs.indices, inputs.features, inputs.labels,
+              *inputs.masks, *inputs.ref_graph):
+        h.update(np.ascontiguousarray(a).tobytes())
+    for name, v in inputs.params.items():
+        h.update(name.encode())
+        h.update(v.numpy().tobytes())
+    h.update(str(inputs.dropout_seed).encode())
+    return h.hexdigest()
+
+
+# make_inputs's graph, node data, weights and dropout seed for SEED at the
+# small graph, as drawn before models could have state.
+DIGESTS = {
+    "sage-reddit.fit":
+        "4b2d0f2f42196f52e66ced0caf78809fc5ebc1fd5f9471a20508ba7b6662b9b6",
+    "gcn-products.train":
+        "5152901bbb24a47a56c96712d96b1da43295ea32c8fd7a385ea00890490d633e",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS))
+def test_inputs_without_state_are_as_before(small, name):
+    inputs = bench_cell.make_inputs(load_cell(name, small), SEED, "cpu")
+    assert inputs.state == {}
+    assert _digest(inputs) == DIGESTS[name]

@@ -46,7 +46,7 @@ from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR, resolve_device
 from maxk_tpu_torch.ops.maxk import maxk
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm, uses_cbsr
 from maxk_tpu_torch.ops.spmm import INT8_ROWSCALE, spmm_t
-from maxk_tpu_torch.parallel.mesh import GraphGroup, all_reduce_sum_grad
+from maxk_tpu_torch.parallel.mesh import GraphGroup, all_reduce_sum
 
 # Aggregations each model family consumes.
 MODEL_NORMS = {"sage": ("mean",), "sage_fused": ("mean",),
@@ -150,6 +150,81 @@ def dropout(x: torch.Tensor, p: float, training: bool,
                                                         device=x.device))
 
 
+class _BatchNorm(torch.autograd.Function):
+    """BatchNorm's training pass: normalise with the batch's statistics,
+    move the running ones, and differentiate through the statistics with
+    the gradient written out.
+
+    The statistics are E[x] and E[x^2] over the first ``n_valid`` rows
+    (None: all), with a ``group`` summed over its ranks with the row
+    count; var = clamp(E[x^2] - E[x]^2, 0); y = xhat * w + b with xhat =
+    (x - mean) * rstd, rstd = rsqrt(var + eps). Only xhat and rstd are
+    kept for the backward:
+
+        db = sum(dy), dw = sum(dy * xhat) (this rank's rows),
+        dx = rstd * w * (dy - mean(dy) - xhat * mean(dy * xhat))
+
+    on the rows that fed the statistics, and rstd * w * dy past them. The
+    two means sum every row the statistics normalised (a padded row's y
+    depends on them too) and divide by the statistics' row count; with a
+    group the sums are all-reduced, the backward's one collective. Where
+    the clamp binds, the variance passes no gradient, as autograd's clamp
+    passes none, and the xhat term drops out.
+
+    Full passes over the (V, D) tensor: the forward reads 5 and writes 3
+    (x for each sum, x - mean, its scaling in place, y), the backward
+    reads 7 and writes 3 (dy's sum, dy * xhat and its sum, the direct
+    term, the correction in place).
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn, n_valid):
+        xv = x[:n_valid]
+        s1 = xv.sum(dim=0)
+        # sum(x^2) as the squared column norm: one read, no temporary.
+        s2 = torch.linalg.vector_norm(xv, dim=0).square()
+        d = x.shape[1]
+        if bn.group is None:
+            n = float(xv.shape[0])
+            mean, mean2 = s1 / n, s2 / n
+        else:
+            count = torch.full((1,), float(xv.shape[0]), dtype=x.dtype,
+                               device=x.device)
+            sums = all_reduce_sum(torch.cat([s1, s2, count]), bn.group)
+            n = sums[-1]
+            mean, mean2 = sums[:d] / n, sums[d:2 * d] / n
+        raw_var = mean2 - mean * mean
+        var = torch.clamp(raw_var, min=0.0)
+        rstd = torch.rsqrt(var + bn.eps)
+        m = bn.momentum
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+        obs.count("norm.updates")
+        xhat = torch.sub(x, mean).mul_(rstd)
+        ctx.save_for_backward(xhat, rstd, weight, raw_var >= 0.0)
+        ctx.n, ctx.n_valid, ctx.group = n, n_valid, bn.group
+        return torch.addcmul(bias, xhat, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with obs.span("maxk.norm.backward"):
+            xhat, rstd, weight, var_moves = ctx.saved_tensors
+            db = dy.sum(dim=0)
+            dw = (dy * xhat).sum(dim=0)
+            s_dy, s_dyx = db, dw
+            if ctx.group is not None:
+                d = dy.shape[1]
+                sums = all_reduce_sum(torch.cat([db, dw]), ctx.group)
+                s_dy, s_dyx = sums[:d], sums[d:]
+            scale = rstd * weight
+            dx = torch.addcmul(-scale * (s_dy / ctx.n), dy, scale)
+            dx.addcmul_(xhat, torch.where(var_moves, -scale * (s_dyx / ctx.n),
+                                          0.0))
+            if ctx.n_valid is not None and ctx.n_valid < dy.shape[0]:
+                dx[ctx.n_valid:] = dy[ctx.n_valid:] * scale
+        return dx, dw, db, None, None
+
+
 class BatchNorm(nn.Module):
     """flax ``BatchNorm`` over the node axis, with flax's statistics.
 
@@ -159,13 +234,14 @@ class BatchNorm(nn.Module):
     batch``; eval normalises with the running ones. torch's
     ``BatchNorm1d`` would update the running variance with the unbiased
     batch variance and weigh the new value by its momentum, so it is not
-    used. Running mean starts at 0 and running variance at 1.
+    used. Running mean starts at 0 and running variance at 1. Training
+    runs in one autograd op, ``_BatchNorm``, with its own backward.
 
     With a ``group`` (the JAX package's ``bn_axis``) the batch is every
     rank's rows: training all-reduces sum(x), sum(x^2) and the row count
     (the first ``n_valid`` rows of each rank: padded rows do not count,
-    where the JAX package lets them in), and the gradient flows back
-    through the sum.
+    where the JAX package lets them in), and the backward all-reduces the
+    two sums its correction needs.
     """
 
     momentum = 0.99
@@ -179,32 +255,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(n))
         self.register_buffer("running_var", torch.ones(n))
 
-    def _moments(self, x: torch.Tensor, n_valid: Optional[int]):
-        """E[x] and E[x^2] over the batch."""
-        if self.group is None:
-            return x.mean(dim=0), (x * x).mean(dim=0)
-        xv = x[:n_valid]
-        n = torch.full((1,), float(xv.shape[0]), dtype=x.dtype,
-                       device=x.device)
-        sums = all_reduce_sum_grad(
-            torch.cat([xv.sum(dim=0), (xv * xv).sum(dim=0), n]), self.group)
-        d = x.shape[1]
-        return sums[:d] / sums[-1], sums[d:2 * d] / sums[-1]
-
     def forward(self, x: torch.Tensor, training: bool,
                 n_valid: Optional[int] = None) -> torch.Tensor:
-        if training:
-            mean, mean2 = self._moments(x, n_valid)
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            m = self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
-            + self.bias
+        with obs.span("maxk.norm.forward"):
+            if training:
+                return _BatchNorm.apply(x, self.weight, self.bias, self,
+                                        n_valid)
+            scale = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean) * scale + self.bias
 
 
 class _GNN(nn.Module):

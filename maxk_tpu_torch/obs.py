@@ -23,9 +23,14 @@ The spans, each under the prefix ``maxk.``:
   divisions of the counts. For ``rocauc`` ``.to_host`` copies the logits
   to a host numpy array and ``.metrics`` ranks them there.
 
+- ``maxk.norm.forward`` (``BatchNorm.forward``, GNN_res's BatchNorm, in
+  training and in evaluation) and ``maxk.norm.backward`` (the body of
+  ``_BatchNorm.backward``, the training pass's written-out gradient), one
+  each a layer.
+
 Backward kernels are launched from autograd's device thread while the
 main thread waits inside ``maxk.step.backward``, so their launch times
-fall inside that span.
+fall inside that span, and ``maxk.norm.backward`` opens on that thread.
 
 ``phase(name)`` times a stretch of a ``Trainer``'s construction on the
 host clock (``time.perf_counter()``; no synchronise). Inside
@@ -53,7 +58,9 @@ the process.
 ``counters()`` gives the program's counters by name, live, as
 ``ops.kernel_counters()`` gives the kernels' launches: a reader may zero
 one between readings. ``eval.metrics.device`` and ``eval.metrics.host``
-count evaluations by where their metrics ran.
+count evaluations by where their metrics ran; ``norm.updates`` counts
+the moves of a BatchNorm's running statistics, one a layer a train step
+and none in an evaluation.
 """
 
 from __future__ import annotations
@@ -68,7 +75,8 @@ BUILD_PHASES = ("build.normalize", "build.transpose", "build.segment_plan",
                 "build.upload", "build.model")
 
 _NOOP = contextlib.nullcontext()
-_counters = {"eval.metrics.device": 0, "eval.metrics.host": 0}
+_counters = {"eval.metrics.device": 0, "eval.metrics.host": 0,
+             "norm.updates": 0}
 _local = threading.local()      # this thread's open build and phase
 _last: dict = {}
 

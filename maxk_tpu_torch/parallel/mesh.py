@@ -182,26 +182,6 @@ def all_reduce_sum(x: torch.Tensor, group: GraphGroup) -> torch.Tensor:
     return out
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """all_reduce_sum with its gradient: the result is replicated, so each
-    rank's cotangent is its own share, and the input's gradient is their
-    sum, as JAX's psum transposes."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_reduce_sum(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce_sum(g.contiguous(), ctx.group), None
-
-
-def all_reduce_sum_grad(x: torch.Tensor, group: GraphGroup) -> torch.Tensor:
-    """Differentiable all_reduce_sum."""
-    return _AllReduceSum.apply(x, group)
-
-
 # -- the model axis: Megatron's pair around a column-parallel layer --------
 
 def split_sizes(n: int, parts: int) -> list:

@@ -40,8 +40,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  init seeds vs 0.9847 (phases 11, 16 and 21 run GOLDEN_PROCS
                  seeds at a time, each in a process of its own)
  12 kernels      per kernel: launches in phases 9, 14 and 17 (K1, K2), 10
-                 and 17 (K3, K4) or 8 (the wide kernel's two entries), max
-                 error, times, bound; K1 and K4 each on randn x, on phase
+                 and 17 (K3, K4), 8 (the wide kernel's two entries) or
+                 14, 18 and 21 (BatchNorm's three), max error, times,
+                 bound; K1 and K4 each on randn x, on phase
                  3's integer ties and on the x each of the 4 hidden layers
                  hands it
                  in a train step (K4's on the CBSR route), with their mean
@@ -54,16 +55,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  f32 x on the hub graph and on a graph of the same V and
                  E without hubs, its sweep over segment length S, and the
                  L2-to-SM rate its gathers imply; the share of each train
-                 step the kernels take
+                 step the kernels take. Then (a "batchnorm" line)
+                 GNN_res's BatchNorm passes (csrc/batchnorm.cu) at the
+                 products shape (2449029, 256): both forms of bn_sums
+                 against float64 sums (BN_SUM_RTOL), bn_affine and bn_dx
+                 against their plain versions, each timed beside its
+                 plain version and its byte bound
  13 models_small GCN, GIN and GNN_res (2x256, k=32, f32, norm off and on)
                  on phase 5's small graph, the same parameters on the card
                  and the CPU: a train-mode step's loss, gradients and
                  running statistics, and the eval logits, agree; MaxK
-                 choices held to the card's except near ties; K1 and K2
-                 launch on the card
+                 choices and ReLU signs held to the card's except near
+                 ties; K1 and K2 launch on the card
  14 train_models GCN, GIN and GNN_res at phase 9's cell (4x256, k=32, bf16,
                  norm, dropout 0.5): 5 steps and one eval each, K1 = 4 and
-                 K2 = 8 launches a step and no other kernel, finite loss,
+                 K2 = 8 launches a step, GNN_res's BatchNorm bn_sums = 8,
+                 bn_affine = bn_dx = 4, and no other kernel, finite loss,
                  peak memory
  15 profile      phases 9's and 10's SAGE steps under torch.profiler: device
                  time per step by op group and the top kernels, and the
@@ -94,7 +101,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  0's first gradients rtol 1e-5, atol 1e-6); 5 bf16 SAGE
                  steps and an eval (K1, K2, K3, K4 = 4, 8, 4, 4 a step and
                  rank) and 2 each of GCN and GNN_res (4, 8; GNN_res's
-                 BatchNorm sums over the ranks); one exchange alone (dense
+                 BatchNorm sums over the ranks, bn_sums = 8, bn_affine =
+                 bn_dx = 4); one exchange alone (dense
                  bf16 rows, the CBSR wire); the CLI's --n_devices 2 as a
                  subprocess
  19 cbsr_gather  the CBSR-operand forward (CBSR_GATHER_MODE, K5): K5
@@ -658,11 +666,66 @@ class MaxKTape:
         return self._patched(rep)
 
 
+class ReluTape:
+    """Holds a model's ReLU signs on the card to its run on the CPU, as
+    MaxKTape holds its MaxK choices.
+
+    An entry within rounding of 0 may take either sign on the two
+    devices, and one flip moves every gradient through it (in GNN_res a
+    flipped entry before BatchNorm's backward reaches a whole column). So
+    the card's run records the x of every torch.relu call (`record`), and
+    the CPU's run, calling it in the same order (`replay`), checks that
+    its own signs are the card's except at near ties (|x| <= TIE_RTOL of
+    the row's largest |x|, counted in `flips`), then applies the card's:
+    y = x * (x_card > 0), so dx = g * (x_card > 0).
+    """
+
+    TIE_RTOL = 1e-4
+
+    def __init__(self):
+        self.real = torch.relu
+        self.xs = []
+        self.flips = 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        torch.relu = fn
+        try:
+            yield
+        finally:
+            torch.relu = self.real
+
+    def record(self):
+        def rec(x):
+            self.xs.append(x.detach().clone())
+            return self.real(x)
+        return self._patched(rec)
+
+    def replay(self):
+        recorded = iter(self.xs)
+
+        def rep(x):
+            keep = (next(recorded) > 0).to(x.device)
+            own = x.detach() > 0
+            differ = own != keep
+            if bool(differ.any()):
+                xd = x.detach().reshape(-1, x.shape[-1])
+                near = (xd.abs() <= self.TIE_RTOL
+                        * xd.abs().amax(dim=1, keepdim=True))
+                check(bool(near.reshape(x.shape)[differ].all()),
+                      "the card's ReLU sign differs from the CPU's away "
+                      f"from 0 (|x| {x.detach()[differ].abs().max():.3g})")
+                self.flips += int(differ.sum())
+            return x * keep.to(x.dtype)
+        return self._patched(rep)
+
+
 def card_vs_cpu(name: str, norm: bool, graphs: dict, feats, labels,
                 train_mask, counts) -> dict:
     """One train-mode step (dropout 0) and one eval of `name` 2x256, k=32,
     f32 compute, on the card and on the CPU with the same parameters
-    (load_state_dict), MaxK choices held by MaxKTape. Returns each
+    (load_state_dict), MaxK choices held by MaxKTape and ReLU signs by
+    ReluTape. Returns each
     comparison's error over its tolerance (<= 1 is agreement).
     Tolerances: eval logits within 1e-4 of |cpu| + 1e-5 of the logits'
     largest |cpu| (GIN without norm sums its rows up by the degree at each
@@ -684,14 +747,16 @@ def card_vs_cpu(name: str, norm: bool, graphs: dict, feats, labels,
             compute_dtype="float32",
             generator=torch.Generator().manual_seed(13)).to(device)
     made["card"].load_state_dict(made["cpu"].state_dict())
-    tape = MaxKTape(models_mod)
+    tape, relu_tape = MaxKTape(models_mod), ReluTape()
     out = {}
     for side in ("card", "cpu"):
         model, g = made[side], graphs[side]
         device = next(model.parameters()).device
         x = torch.from_numpy(feats).to(device)
         before = counts()
-        with tape.record() if side == "card" else tape.replay():
+        card = side == "card"
+        with (tape.record() if card else tape.replay(),
+              relu_tape.record() if card else relu_tape.replay()):
             logits = model(g, x, training=True)
             loss = masked_loss(logits, labels.to(device),
                                train_mask.to(device), False)
@@ -738,6 +803,8 @@ def card_vs_cpu(name: str, norm: bool, graphs: dict, feats, labels,
                 loss_cpu=cpu["loss"], launches_card=dict(
                     train=card["train_launches"], eval=card["eval_launches"]),
                 maxk_calls=len(tape.xs), near_tie_flips=tape.flips,
+                relu_calls=len(relu_tape.xs),
+                relu_near_tie_flips=relu_tape.flips,
                 worst=worst, err_over_tol=ratios[worst],
                 err_over_tol_all=ratios,
                 max_abs_grad={n: float(g.abs().max())
@@ -971,13 +1038,17 @@ def harness_phase(cell_csr, counted: dict, k4_ms: float) -> dict:
 # What one rank of phase 18 launches a step, by kernel id: SAGE's CBSR
 # wire expands the table (K6) forward and the sampled gradient backward.
 DIST_SAGE_STEP = {"k1": 4, "k2": 8, "k3": 4, "k4": 4, "k5": 0, "k1_wide": 0,
-                  "k4_wide": 0, "k6": 8, "k6_int8": 0, "k7": 0}
-DIST_GCN_STEP = {"k1": 4, "k2": 8, "k3": 0, "k4": 0, "k5": 0, "k1_wide": 0,
-                 "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0}
+                  "k4_wide": 0, "k6": 8, "k6_int8": 0, "k7": 0, "bn_sums": 0,
+                  "bn_affine": 0, "bn_dx": 0}
+DIST_GCN_STEP = {**DIST_SAGE_STEP, "k3": 0, "k4": 0, "k6": 0}
+# GNN_res's BatchNorm, a layer: both sums forward and backward, the
+# affine pass and the input gradient.
+DIST_GNNRES_STEP = {**DIST_GCN_STEP, "bn_sums": 8, "bn_affine": 4,
+                    "bn_dx": 4}
 # The families phase 18 runs on 2 ranks: SAGE, and those of the dense
 # exchange (GCN; GNN_res, whose BatchNorm sums over the ranks).
 DIST_RUNS = (("sage", 5, DIST_SAGE_STEP), ("gcn", 2, DIST_GCN_STEP),
-             ("gnn_res", 2, DIST_GCN_STEP))
+             ("gnn_res", 2, DIST_GNNRES_STEP))
 
 
 def dist_rank(group, job: dict) -> dict:
@@ -1679,7 +1750,8 @@ def gather_phase(split_graphs: dict, g, x_full, gen, train,
 REDDIT_V = 232965
 REDDIT_E = 114618780
 REDDIT_STEP = {"k1": 4, "k2": 8, "k3": 0, "k4": 0, "k5": 0, "k1_wide": 0,
-               "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0}
+               "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0, "bn_sums": 0,
+               "bn_affine": 0, "bn_dx": 0}
 # The same step under --compute_dtype int8: K7 in K2's place.
 REDDIT_INT8_STEP = {**REDDIT_STEP, "k2": 0, "k7": 8}
 
@@ -1932,8 +2004,9 @@ def golden_rows_phase() -> dict:
     SAGE at k = 8, 16, 64, the four relu rows, the four multilabel rows),
     each over GOLDEN_FLOOR_SEEDS through the pool, held from below to
     BASELINE.md; K1 and K2 launched in the maxk rows, K2 and no K1 in the
-    relu rows. Meanwhile the tool's CLI runs once with --only-multilabel,
-    its closing line checked. Returns the runs' launches."""
+    relu rows, BatchNorm's kernels in the GNN_res rows and in no other.
+    Meanwhile the tool's CLI runs once with --only-multilabel, its
+    closing line checked. Returns the runs' launches."""
     from maxk_tpu_torch.tools.golden_accuracy import case_row
     t0 = time.perf_counter()
     cli = subprocess.Popen(
@@ -1965,12 +2038,16 @@ def golden_rows_phase() -> dict:
         cli_rows[name] = dict(r, equals_seed_97=(
             r["best_test"] == round(seed97["best_test"], 4)))
     launches = {n: 0 for n in REDDIT_STEP}
+    norm_kernels = ("bn_sums", "bn_affine", "bn_dx")
     for name, row in rows.items():
         relu = GOLDEN_CASES[name][1] == "relu"
+        norm = GOLDEN_CASES[name][0] == "gnn_res"
         for run in row["runs"]:
             lc = run["launches"]
             check(lc["k2"] > 0 and (lc["k1"] == 0) == relu
-                  and all(lc[n] == 0 for n in lc if n not in ("k1", "k2")),
+                  and all((lc[n] > 0) == norm for n in norm_kernels)
+                  and all(lc[n] == 0 for n in lc
+                          if n not in ("k1", "k2", *norm_kernels)),
                   f"golden {name} seed {run['seed']} launched {lc}")
             for n in launches:
                 launches[n] += lc[n]
@@ -1981,6 +2058,145 @@ def golden_rows_phase() -> dict:
     for row in rows.values():
         check_golden(row)
     return launches
+
+
+# Phase 12's BatchNorm shape: GNN_res's (V, D) activation at the
+# ogbn-products shape, as the benchmark's gnnres-products.fit runs it.
+BN_SHAPE = (2_449_029, 256)
+# A column sum of csrc/batchnorm.cu lies within (groups + 6) 2**-24 of
+# the sum of its terms' magnitudes (6.0e-7 at D = 256, 4 row groups); a
+# slab lost or added moves a sum by ~1/396 of it.
+BN_SUM_RTOL = 1e-6
+
+
+def bn_phase(gen) -> dict:
+    """Phase 12's BatchNorm passes (csrc/batchnorm.cu) at BN_SHAPE, randn
+    x and dy, GNN_res's main path (every row valid):
+
+    - bn_sums in both forms against float64 sums of the same terms,
+      within BN_SUM_RTOL of the sum of their magnitudes a column (its
+      plain version's error beside it); bn_affine and bn_dx against their
+      plain versions within 2**-22 and 2**-21 of the magnitudes of their
+      terms (one fma for a rounded product, two for addcmul's);
+    - each timed beside its plain version (torch.var_mean beside the
+      forward sums) and its byte bound: x read (sums forward), dy and x
+      read (backward), x read and y written (affine), dy and x read and
+      dx written (dx), float32.
+    Returns the kernels line's numbers, by kernel id."""
+    from maxk_tpu_torch.ops.cuda_batchnorm import (bn_affine,
+                                                   bn_affine_plain, bn_dx,
+                                                   bn_dx_plain, bn_sums,
+                                                   bn_sums_plain)
+    t0 = time.perf_counter()
+    v, d = BN_SHAPE
+    dev = gen.device
+    x = torch.randn(v, d, device=dev, generator=gen) * 2.0 + 0.5
+    dy = torch.randn(v, d, device=dev, generator=gen)
+    w = torch.rand(d, device=dev, generator=gen) + 0.5
+    b = torch.randn(d, device=dev, generator=gen)
+    chunks = 1 << 18
+
+    def exact(terms_of):
+        """float64 column sums of terms_of(rows) and of their |.|, by
+        chunks of rows."""
+        s = torch.zeros(d, dtype=torch.float64, device=dev)
+        mag = torch.zeros_like(s)
+        for r in range(0, v, chunks):
+            t = terms_of(slice(r, r + chunks))
+            s += t.sum(dim=0)
+            mag += t.abs().sum(dim=0)
+        return s, mag
+
+    def sum_err(got, want, mag):
+        """(max |got - want|, its largest share of mag a column)."""
+        err = (got.double() - want).abs()
+        return float(err.max()), float((err / mag).max())
+
+    out = {}
+    s1, s2 = bn_sums(x)
+    p1, p2 = bn_sums_plain(x)
+    mean = s1 / v
+    rstd = torch.rsqrt(torch.clamp(s2 / v - mean * mean, min=0.0) + 1e-5)
+    q1, q2 = bn_sums(dy, norm=(x, mean, rstd))
+    r1, r2 = bn_sums_plain(dy, norm=(x, mean, rstd))
+    m64, r64 = mean.double(), rstd.double()
+    forms = {"forward": ((s1, p1, lambda i: x[i].double()),
+                         (s2, p2, lambda i: x[i].double() ** 2)),
+             "backward": ((q1, r1, lambda i: dy[i].double()),
+                          (q2, r2, lambda i: dy[i].double()
+                           * ((x[i].double() - m64) * r64)))}
+    errs = {}
+    for form, sums in forms.items():
+        errs[form] = []
+        for got, plain, terms_of in sums:
+            want, mag = exact(terms_of)
+            err, share = sum_err(got, want, mag)
+            check(share <= BN_SUM_RTOL,
+                  f"bn_sums ({form}) off the float64 sum by {share:.3g} "
+                  f"of sum |terms| (> {BN_SUM_RTOL})")
+            errs[form].append(dict(max_abs_err=err, err_over_sum_abs=share,
+                                   plain_err_over_sum_abs=sum_err(
+                                       plain, want, mag)[1]))
+    n_bytes = v * d * 4
+    for form, fn, plain, lib, reads, ops_per in (
+            ("forward", lambda: bn_sums(x), lambda: bn_sums_plain(x),
+             lambda: torch.var_mean(x, dim=0, correction=0), 1, 3),
+            ("backward", lambda: bn_sums(dy, norm=(x, mean, rstd)),
+             lambda: bn_sums_plain(dy, norm=(x, mean, rstd)), None, 2, 5)):
+        bound, by = bound_ms(reads * n_bytes, ops_per * v * d)
+        ms = time_ms(fn)
+        out[f"bn_sums_{form}"] = dict(
+            err=max(e["max_abs_err"] for e in errs[form]), ms=ms,
+            plain_ms=time_ms(plain, 1, 5), bound=(bound, by),
+            library_ms=None if lib is None else time_ms(lib, 1, 5),
+            share_of_bound=bound / ms, sums=errs[form])
+    del p1, p2, r1, r2
+
+    scale = rstd * w
+    y = bn_affine(x, mean, scale, b)
+    want = bn_affine_plain(x, mean, scale, b)
+    err = (y - want).abs()
+    ratio = float((err / (2.0 ** -22 * (((x - mean) * scale).abs()
+                                        + b.abs())).clamp_min(1e-30)).max())
+    check(ratio <= 1.0, f"bn_affine off its plain version: {ratio:.3g} "
+                        "of its bound")
+    bound, by = bound_ms(2 * n_bytes, 3 * v * d)
+    ms = time_ms(lambda: bn_affine(x, mean, scale, b))
+    out["bn_affine"] = dict(
+        err=float(err.max()), err_over_bound=ratio, ms=ms,
+        plain_ms=time_ms(lambda: bn_affine_plain(x, mean, scale, b), 1, 5),
+        bound=(bound, by), library_ms=None, share_of_bound=bound / ms)
+    del y, want, err
+
+    c_dy = -scale * (q1 / v)
+    c_dyx = -scale * (q2 / v)
+    dx = bn_dx(dy, x, mean, rstd, scale, c_dy, c_dyx)
+    want = bn_dx_plain(dy, x, mean, rstd, scale, c_dy, c_dyx)
+    err = (dx - want).abs()
+    del dx, want
+    err_abs = float(err.max())
+    mag = (dy * scale).abs_().add_(c_dy.abs())
+    mag.add_(torch.sub(x, mean).mul_(rstd).mul_(c_dyx).abs_())
+    ratio = float(err.div_(mag.mul_(2.0 ** -21).clamp_min_(1e-30)).max())
+    del mag, err
+    check(ratio <= 1.0, f"bn_dx off its plain version: {ratio:.3g} of its "
+                        "bound")
+    bound, by = bound_ms(3 * n_bytes, 6 * v * d)
+    ms = time_ms(lambda: bn_dx(dy, x, mean, rstd, scale, c_dy, c_dyx))
+    out["bn_dx"] = dict(
+        err=err_abs, err_over_bound=ratio, ms=ms,
+        plain_ms=time_ms(lambda: bn_dx_plain(dy, x, mean, rstd, scale,
+                                             c_dy, c_dyx), 1, 5),
+        bound=(bound, by), library_ms=None, share_of_bound=bound / ms)
+    del x, dy
+    torch.cuda.empty_cache()
+    emit("batchnorm", shape=f"x, dy ({v}, {d}) f32, every row valid",
+         passes=out, sum_rtol=BN_SUM_RTOL,
+         notes="bound: bytes at 3.35 TB/s (sums forward read x; backward "
+               "read dy and x; affine read x, write y; dx read dy and x, "
+               "write dx); library: torch.var_mean (sums forward)",
+         seconds=round(time.perf_counter() - t0, 3))
+    return out
 
 
 # Phase 22's checks of K6: k and D where its passes and stores change;
@@ -3092,6 +3308,9 @@ def main() -> int:
          step_kernels=step_share(steps[-1], median_step_ms),
          step_kernels_cbsr=step_share(steps_c[-1], median_c_ms))
 
+    # GNN_res's BatchNorm passes at the products shape.
+    bn = bn_phase(gen)
+
     # -- 13 GCN, GIN and GNN_res on the card vs the CPU --------------------
     # Phase 5's small graph (not symmetric: the transposes are built), 64
     # input features, 16 classes; each model 2x256, k=32, f32 compute,
@@ -3112,8 +3331,8 @@ def main() -> int:
          layers=2, k=32, compute_dtype="float32", models=small_models,
          tolerances="eval logits 1e-4 |cpu| + 1e-5 max|cpu|; loss rtol "
                     "1e-4; gradients and running statistics 1e-4 max|cpu| "
-                    "+ 1e-6; MaxK choices the card's except near ties "
-                    "(MaxKTape)",
+                    "+ 1e-6; MaxK choices and ReLU signs the card's "
+                    "except near ties (MaxKTape, ReluTape)",
          seconds=round(time.perf_counter() - t0, 3))
     for row in small_models:
         check(row["err_over_tol"] <= 1.0,
@@ -3131,9 +3350,14 @@ def main() -> int:
         t1 = time.perf_counter()
         mcfg = types.SimpleNamespace(**{**vars(cfg), "model": name})
         mbundle = GraphBundle.for_model(csr, name, symmetric=True, device=dev)
+        # GNN_res's BatchNorm: both sums a layer, the affine pass forward
+        # and the input gradient backward.
+        norm = int(name == "gnn_res")
         m_steps, m_launches, m_peak = train(
             {"k1": n_layers, "k2": 2 * n_layers, "k3": 0, "k4": 0, "k5": 0,
-             "k1_wide": 0, "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0},
+             "k1_wide": 0, "k4_wide": 0, "k6": 0, "k6_int8": 0, "k7": 0,
+             "bn_sums": 2 * n_layers * norm, "bn_affine": n_layers * norm,
+             "bn_dx": n_layers * norm},
             mcfg, mbundle)
         model_steps[name] = dict(
             config=f"{name} 4x256 maxk k=32 norm dropout=0.5 bf16",
@@ -3255,12 +3479,18 @@ def main() -> int:
                            + paths_launches["k6"] + tp_launches["k6"])
     for n in ("k6_int8", "k7"):
         main_launches[n] = paths_launches[n] + reddit_launches[n]
+    # BatchNorm's passes in GNN_res: at full width (phase 14), on 2 ranks
+    # (phase 18) and in the golden rows (phase 21).
+    for n in ("bn_sums", "bn_affine", "bn_dx"):
+        main_launches[n] = (model_steps["gnn_res"]["launches"][n]
+                            + dist_launches[n] + golden_launches[n])
 
     def entry(name, source, replaces, n, err, ms, plain, bound, by, lib,
               dist_n):
         return {"name": name, "route": "cuda",
                 "source": f"maxk_tpu_torch/csrc/{source}",
-                "replaces": replaces if replaces.startswith("tools/")
+                "replaces": replaces if replaces.startswith(("tools/",
+                                                             "maxk_tpu/"))
                 else f"maxk_tpu/ops/{replaces}", "launches": n,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib,
@@ -3304,10 +3534,30 @@ def main() -> int:
         entry("spmm_int8", "spmm_int8.cu", "spmm.py:308",
               main_launches["k7"], k7["err"], k7["ms"], k7["plain_ms"],
               *k7["bound"], k7["library_ms"], dist_launches["k7"]),
+        # No pallas_call: flax's BatchNorm, which XLA fuses. bn_sums at
+        # its forward form, its backward form beside it.
+        dict(entry("bn_sums", "batchnorm.cu", "maxk_tpu/models/models.py:293",
+                   main_launches["bn_sums"], bn["bn_sums_forward"]["err"],
+                   bn["bn_sums_forward"]["ms"],
+                   bn["bn_sums_forward"]["plain_ms"],
+                   *bn["bn_sums_forward"]["bound"],
+                   bn["bn_sums_forward"]["library_ms"],
+                   dist_launches["bn_sums"]),
+             backward={n: bn["bn_sums_backward"][n]
+                       for n in ("err", "ms", "plain_ms", "bound")}),
+        entry("bn_affine", "batchnorm.cu", "maxk_tpu/models/models.py:293",
+              main_launches["bn_affine"], bn["bn_affine"]["err"],
+              bn["bn_affine"]["ms"], bn["bn_affine"]["plain_ms"],
+              *bn["bn_affine"]["bound"], None, dist_launches["bn_affine"]),
+        entry("bn_dx", "batchnorm.cu", "maxk_tpu/models/models.py:293",
+              main_launches["bn_dx"], bn["bn_dx"]["err"], bn["bn_dx"]["ms"],
+              bn["bn_dx"]["plain_ms"], *bn["bn_dx"]["bound"], None,
+              dist_launches["bn_dx"]),
     ]
     # Each kernel's launches on the TP grid (phase 25), by its id.
     for e, kid in zip(kernels, ("k1", "k2", "k3", "k4", "k1_wide",
-                                "k4_wide", "k5", "k6", "k6_int8", "k7")):
+                                "k4_wide", "k5", "k6", "k6_int8", "k7",
+                                "bn_sums", "bn_affine", "bn_dx")):
         e["tp_launches"] = tp_launches[kid]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from maxk_tpu_torch import obs
+from maxk_tpu_torch.ops.cuda_batchnorm import bn_affine, bn_dx, bn_sums
 from maxk_tpu_torch.ops.graph import CSRGraph, DeviceCSR, resolve_device
 from maxk_tpu_torch.ops.maxk import maxk
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm, uses_cbsr
@@ -157,9 +158,10 @@ class _BatchNorm(torch.autograd.Function):
 
     The statistics are E[x] and E[x^2] over the first ``n_valid`` rows
     (None: all), with a ``group`` summed over its ranks with the row
-    count; var = clamp(E[x^2] - E[x]^2, 0); y = xhat * w + b with xhat =
-    (x - mean) * rstd, rstd = rsqrt(var + eps). Only xhat and rstd are
-    kept for the backward:
+    count; var = clamp(E[x^2] - E[x]^2, 0); y = (x - mean) * scale + b
+    with scale = rstd * w, rstd = rsqrt(var + eps). Only x itself, the
+    fresh input that nothing else keeps, and D-wide vectors are kept for
+    the backward, which recomputes xhat = (x - mean) * rstd:
 
         db = sum(dy), dw = sum(dy * xhat) (this rank's rows),
         dx = rstd * w * (dy - mean(dy) - xhat * mean(dy * xhat))
@@ -171,24 +173,24 @@ class _BatchNorm(torch.autograd.Function):
     the clamp binds, the variance passes no gradient, as autograd's clamp
     passes none, and the xhat term drops out.
 
-    Full passes over the (V, D) tensor: the forward reads 5 and writes 3
-    (x for each sum, x - mean, its scaling in place, y), the backward
-    reads 7 and writes 3 (dy's sum, dy * xhat and its sum, the direct
-    term, the correction in place).
+    The passes over the (V, D) tensor are ``ops/cuda_batchnorm.py``'s
+    (hand-written kernels on the card, their plain versions on the CPU):
+    the forward reads x once for both sums (``bn_sums``), then reads 1
+    and writes 1 (``bn_affine``: x to y); the backward reads dy and x for
+    its two sums (``bn_sums``), then reads 2 and writes 1 (``bn_dx``):
+    3 passes forward and 5 backward.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, bn, n_valid):
-        xv = x[:n_valid]
-        s1 = xv.sum(dim=0)
-        # sum(x^2) as the squared column norm: one read, no temporary.
-        s2 = torch.linalg.vector_norm(xv, dim=0).square()
+        s1, s2 = bn_sums(x, n_valid)
         d = x.shape[1]
+        rows = x[:n_valid].shape[0]
         if bn.group is None:
-            n = float(xv.shape[0])
+            n = float(rows)
             mean, mean2 = s1 / n, s2 / n
         else:
-            count = torch.full((1,), float(xv.shape[0]), dtype=x.dtype,
+            count = torch.full((1,), float(rows), dtype=x.dtype,
                                device=x.device)
             sums = all_reduce_sum(torch.cat([s1, s2, count]), bn.group)
             n = sums[-1]
@@ -200,29 +202,49 @@ class _BatchNorm(torch.autograd.Function):
         bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
         bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
         obs.count("norm.updates")
-        xhat = torch.sub(x, mean).mul_(rstd)
-        ctx.save_for_backward(xhat, rstd, weight, raw_var >= 0.0)
+        scale = rstd * weight
+        ctx.save_for_backward(x, mean, rstd, scale, raw_var >= 0.0)
         ctx.n, ctx.n_valid, ctx.group = n, n_valid, bn.group
-        return torch.addcmul(bias, xhat, weight)
+        return bn_affine(x, mean, scale, bias)
 
     @staticmethod
     def backward(ctx, dy):
         with obs.span("maxk.norm.backward"):
-            xhat, rstd, weight, var_moves = ctx.saved_tensors
-            db = dy.sum(dim=0)
-            dw = (dy * xhat).sum(dim=0)
+            x, mean, rstd, scale, var_moves = ctx.saved_tensors
+            dy = dy.contiguous()
+            db, dw = bn_sums(dy, norm=(x, mean, rstd))
             s_dy, s_dyx = db, dw
             if ctx.group is not None:
                 d = dy.shape[1]
                 sums = all_reduce_sum(torch.cat([db, dw]), ctx.group)
                 s_dy, s_dyx = sums[:d], sums[d:]
-            scale = rstd * weight
-            dx = torch.addcmul(-scale * (s_dy / ctx.n), dy, scale)
-            dx.addcmul_(xhat, torch.where(var_moves, -scale * (s_dyx / ctx.n),
-                                          0.0))
-            if ctx.n_valid is not None and ctx.n_valid < dy.shape[0]:
-                dx[ctx.n_valid:] = dy[ctx.n_valid:] * scale
+            c_dy = -scale * (s_dy / ctx.n)
+            c_dyx = torch.where(var_moves, -scale * (s_dyx / ctx.n), 0.0)
+            dx = bn_dx(dy, x, mean, rstd, scale, c_dy, c_dyx, ctx.n_valid)
         return dx, dw, db, None, None
+
+
+class _BatchNormEval(torch.autograd.Function):
+    """BatchNorm's evaluation pass, y = (x - shift) * scale + b with the
+    running statistics' shift and scale, in one ``bn_affine`` pass; and
+    its transpose, for a caller that differentiates the evaluation: dx =
+    dy * scale, d(scale) = sum(dy * (x - shift)) and db = sum(dy) (one
+    ``bn_sums`` read of dy and x). The shift, a buffer, takes none."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, bias):
+        ctx.save_for_backward(x, shift, scale)
+        return bn_affine(x, shift, scale, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, shift, scale = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dy * scale if ctx.needs_input_grad[0] else None
+        db = d_scale = None
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            db, d_scale = bn_sums(dy, norm=(x, shift, torch.ones_like(scale)))
+        return dx, None, d_scale, db
 
 
 class BatchNorm(nn.Module):
@@ -231,7 +253,10 @@ class BatchNorm(nn.Module):
     Training normalises with the batch's biased statistics, the variance
     as flax computes it (E[x^2] - E[x]^2, clamped at 0), and moves the
     running ones by ``running = momentum * running + (1 - momentum) *
-    batch``; eval normalises with the running ones. torch's
+    batch``; eval normalises with the running ones, in one pass
+    (``_BatchNormEval``: ``bn_affine`` with shift running_mean and scale
+    rsqrt(running_var + eps) * w, one read of x and one write, and a
+    backward for a caller that differentiates it). torch's
     ``BatchNorm1d`` would update the running variance with the unbiased
     batch variance and weigh the new value by its momentum, so it is not
     used. Running mean starts at 0 and running variance at 1. Training
@@ -262,7 +287,8 @@ class BatchNorm(nn.Module):
                 return _BatchNorm.apply(x, self.weight, self.bias, self,
                                         n_valid)
             scale = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return (x - self.running_mean) * scale + self.bias
+            return _BatchNormEval.apply(x, self.running_mean, scale,
+                                        self.bias)
 
 
 class _GNN(nn.Module):

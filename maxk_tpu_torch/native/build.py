@@ -32,7 +32,7 @@ BUILD_DIR = _PKG.parent / "build" / "maxk_tpu_torch"
 # Every source in csrc/: the kernels, and the roofline's gather probe.
 KERNELS = ("maxk_topk", "cbsr_topk", "spmm_csr", "cbsr_gather",
            "topk_wide", "spgemm_cbsr", "cbsr_expand", "spmm_int8",
-           "gather_probe")
+           "batchnorm", "gather_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

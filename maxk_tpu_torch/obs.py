@@ -57,10 +57,15 @@ the process.
 
 ``counters()`` gives the program's counters by name, live, as
 ``ops.kernel_counters()`` gives the kernels' launches: a reader may zero
-one between readings. ``eval.metrics.device`` and ``eval.metrics.host``
-count evaluations by where their metrics ran; ``norm.updates`` counts
-the moves of a BatchNorm's running statistics, one a layer a train step
-and none in an evaluation.
+one between readings. Among the kernels, ``bn_sums``, ``bn_affine`` and
+``bn_dx`` count BatchNorm's passes on the card
+(``ops/cuda_batchnorm.py``): a GNN_res train step launches ``bn_sums``
+twice a layer (its forward and its backward; the finishing launch is
+not counted apart), ``bn_affine`` and ``bn_dx`` once a layer, and an
+evaluation ``bn_affine`` once a layer. ``eval.metrics.device`` and
+``eval.metrics.host`` count evaluations by where their metrics ran;
+``norm.updates`` counts the moves of a BatchNorm's running statistics,
+one a layer a train step and none in an evaluation.
 """
 
 from __future__ import annotations

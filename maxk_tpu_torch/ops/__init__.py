@@ -4,6 +4,7 @@
 def kernel_counters() -> dict:
     """Every kernel wrapper, by kernel id. Each adds one to its
     ``launches`` where it launches its kernel, and nowhere else."""
+    from maxk_tpu_torch.ops.cuda_batchnorm import bn_affine, bn_dx, bn_sums
     from maxk_tpu_torch.ops.cuda_expand import (cbsr_expand_forward,
                                                 cbsr_expand_int8)
     from maxk_tpu_torch.ops.cuda_gather import cbsr_gather_forward
@@ -17,4 +18,5 @@ def kernel_counters() -> dict:
             "k4": cbsr_topk_forward, "k5": spgemm_cbsr_csr,
             "k1_wide": maxk_forward_wide, "k4_wide": cbsr_topk_forward_wide,
             "k6": cbsr_expand_forward, "k6_int8": cbsr_expand_int8,
-            "k7": spmm_int8_csr}
+            "k7": spmm_int8_csr, "bn_sums": bn_sums, "bn_affine": bn_affine,
+            "bn_dx": bn_dx}

@@ -9,15 +9,15 @@
 
 Runs the golden synthetic recipe (``tools/golden_accuracy.py``'s ``Cfg``:
 3x64, dropout 0.2, norm, float32, Adam 0.01, eval every 5, patience 10,
-on ``chip_smoke.GOLDEN_DATASET``) with MaxK k=32 once per init seed,
+on ``GOLDEN_DATASET``) with MaxK k=32 once per init seed,
 ``--procs`` seeds at a time in separate processes. ``--nonlinear``, ``--k``
 and ``--metric`` choose another row of the recipe: relu, another k, or the
 multilabel dataset (``MULTILABEL_DATASET`` of
 ``maxk_tpu_torch/tools/golden_accuracy.py``) scored by micro-F1 or rocauc:
 
 - ``jax``: ``maxk_tpu.train.loop.Trainer`` on the CPU;
-- ``torch``: the port's run that ``chip_smoke.py`` makes on the card
-  (``chip_smoke.golden_run``; the worker imports no JAX);
+- ``torch``: the port's run that the card's golden tests make
+  (``golden_run``; the worker imports no JAX);
 - ``torch-jax-init``: the port on the CPU from the reference's init of
   the same seed (its params and ``batch_stats``, by ``load_flax_params``),
   with the port's own dropout bits.
@@ -25,7 +25,8 @@ multilabel dataset (``MULTILABEL_DATASET`` of
 ``--dropout-offset N`` draws the dropout bits from seed + N + 1 instead of
 seed + 1 and keeps the init. Prints one JSON line per seed, then one with
 the mean, median, standard deviation, minimum and maximum of best_test and
-the count below ``chip_smoke.GOLDEN_TAIL``.
+the count below ``GOLDEN_TAIL``. ``GOLDEN_DATASET``, ``golden_run`` and
+``GOLDEN_TAIL`` are ``maxk_tpu_torch/tools/golden_accuracy.py``'s.
 
 ``--lockstep SEED`` runs both packages from the reference's init of SEED
 at dropout 0 (so neither draws bits), 150 epochs with no early stop, and
@@ -62,7 +63,7 @@ def _jax_trainer(model: str, init_seed: int, path: str,
     """The reference's golden Trainer for the row (model, nonlinear, k,
     metric) and its init state for `init_seed`."""
     _jax_env()
-    from chip_smoke import GOLDEN_DATASET
+    from maxk_tpu_torch.tools.golden_accuracy import GOLDEN_DATASET
     from golden_accuracy import Cfg
     from maxk_tpu.data.datasets import (make_synthetic_dataset,
                                         make_synthetic_multilabel_dataset)
@@ -103,7 +104,7 @@ def run_torch(model: str, seed: int, device: str, threads: int,
     sys.path[:0] = [str(REPO)]
     import torch
     torch.set_num_threads(threads)
-    from chip_smoke import golden_run
+    from maxk_tpu_torch.tools.golden_accuracy import golden_run
 
     def prepare(trainer):
         if jax_init:
@@ -135,7 +136,7 @@ def lockstep(model: str, seed: int) -> None:
     epoch."""
     jax = _jax_env()
     import numpy as np
-    from chip_smoke import GOLDEN_DATASET
+    from maxk_tpu_torch.tools.golden_accuracy import GOLDEN_DATASET
     from golden_accuracy import Cfg
     from maxk_tpu_torch.data.datasets import make_synthetic_dataset
     from maxk_tpu_torch.train.loop import Trainer
@@ -223,7 +224,7 @@ def main() -> int:
                                 args.engine == "torch-jax-init", row)
                                for s in seeds]
     sys.path[:0] = [str(REPO)]
-    from chip_smoke import GOLDEN_TAIL
+    from maxk_tpu_torch.tools.golden_accuracy import GOLDEN_TAIL
     runs = []
     with multiprocessing.get_context("spawn").Pool(args.procs) as pool:
         for run in pool.imap(_call, [(fn, job) for job in jobs]):

@@ -10,16 +10,17 @@ example a parent commit unpacked with `git archive` into a directory
 that .gitignore lists; only its maxk_tpu_torch/csrc/maxk_topk.cu is
 read. Both sources are built with the port's nvcc flags
 (maxk_tpu_torch/native/build.py) and launched through the same ctypes
-call. The inputs are chip_smoke.py's, all (131072, 256) float32 at
-k = 32: (a) randn, (b) integer ties in [-3, 3], (c) the x each of the 4
-hidden layers hands K1 in the first step of its training. On each input
-the two builds must give the same bits as the plain version; then each
-is timed with chip_smoke.time_ms twice over in the order other, this,
-this, other. One JSON line per input, then one with both builds' ptxas
-registers and the instruction count of the descent loop's body in the
-VPL = 8 instantiation (the loop that holds the warp sum, REDUX), read
-from `cuobjdump -sass`; the SASS listings go to OUT. The card's name
-and power limit come first.
+call. The inputs are bench/kernel_table.py's cell, all (131072, 256)
+float32 at k = 32: (a) randn, (b) integer ties in [-3, 3], (c) the x
+each of the 4 hidden layers hands K1 in the first step of its training.
+On each input the two builds must give the same bits as the plain
+version; then each is timed with bench/timing.py's time_fn (a sample of
+20 calls) twice over in the order other, this, this, other. One JSON
+line per input, then one with both builds' ptxas registers and the
+instruction count of the descent loop's body in the VPL = 8
+instantiation (the loop that holds the warp sum, REDUX), read from
+`cuobjdump -sass`; the SASS listings go to OUT. The card's name and
+power limit come first.
 """
 
 import argparse
@@ -33,10 +34,12 @@ from pathlib import Path
 
 import torch
 
-import chip_smoke
-from chip_smoke import check, descent_steps, emit, time_ms
-
-V, D, K = 131072, 256, 32
+from maxk_tpu_torch.bench.kernel_table import (D, K, V, bench_dataset,
+                                               cell_csr, check,
+                                               descent_steps, emit,
+                                               layer_inputs, ptxas_summary,
+                                               train_config)
+from maxk_tpu_torch.bench.timing import time_fn
 
 
 def build(src: Path, out: Path, flags=()) -> str:
@@ -132,7 +135,6 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     emit("card", nvidia_smi=smi, torch_name=torch.cuda.get_device_name(0))
 
-    from maxk_tpu_torch.data.loaders import synthetic_graph
     from maxk_tpu_torch.models.models import GraphBundle
     from maxk_tpu_torch.native.build import BUILD_DIR, CSRC
     from maxk_tpu_torch.ops.cuda_topk import maxk_forward_plain
@@ -150,12 +152,10 @@ def main() -> int:
     inputs = [("a_randn", torch.randn(V, D, device=dev, generator=gen)),
               ("b_ties", torch.randint(-3, 4, (V, D), device=dev,
                                        generator=gen).float())]
-    csr = synthetic_graph(V, 50.0, seed=123)
+    csr = cell_csr()
     bundle = GraphBundle.from_csr(csr, norms=("mean",), symmetric=True,
                                   device=dev)
-    layers = chip_smoke.k1_train_inputs(
-        chip_smoke.train_config(4), chip_smoke.bench_dataset(csr, V, D),
-        bundle)
+    layers = layer_inputs(train_config(), bench_dataset(csr), bundle)
     inputs += [(f"c_layer{i}", x) for i, x in enumerate(layers)]
 
     for name, x in inputs:
@@ -168,7 +168,7 @@ def main() -> int:
         ms = {"other": [], "this": []}
         for _ in range(2):
             for n in ("other", "this", "this", "other"):
-                ms[n].append(time_ms(lambda: run[n](x, K)))
+                ms[n].append(time_fn(lambda: run[n](x, K), 3, 1).mean_ms)
         steps = descent_steps(x, K).double()
         emit("k1_ab", input=name, shape=[V, D], k=K,
              mean_steps=float(steps.mean()),
@@ -186,7 +186,7 @@ def main() -> int:
             "\n".join(loop.pop("body")) + "\n")
         loops[n] = loop
     emit("k1_sass", other=str(srcs["other"]), this=str(srcs["this"]),
-         ptxas={n: chip_smoke.ptxas_summary(r) for n, r in ptxas.items()},
+         ptxas={n: ptxas_summary(r) for n, r in ptxas.items()},
          descent_loop_vpl8=loops)
     print(smi)
     return 0

@@ -12,10 +12,11 @@ read. Both sources are built with the port's nvcc flags (k1_ab.build)
 and launched through the same ctypes call. The inputs are all
 (131072, 256) float32 at k = 32: (a) randn, (b) integer ties in [-3, 3],
 (c) the x each of the 4 hidden layers hands K4 in the first step of
-chip_smoke.py's training on the CBSR route (MAXK_FUSED_MASK=0). On each
-input the two builds must give the same bits as the plain version; then
-each is timed with chip_smoke.time_ms twice over in the order other,
-this, this, other. One JSON line per input, then one with both builds'
+bench/kernel_table.py's cell trained on the CBSR route
+(MAXK_FUSED_MASK=0). On each input the two builds must give the same
+bits as the plain version; then each is timed with bench/timing.py's
+time_fn (a sample of 20 calls) twice over in the order other, this,
+this, other. One JSON line per input, then one with both builds'
 ptxas registers and spills (all six VPL instantiations) and, in the
 VPL = 8 instantiation, the instruction count of the descent loop's body
 (the loop that holds the warp sum, REDUX; k1_ab.loop_holding) and of
@@ -27,19 +28,23 @@ name and power limit come first.
 import argparse
 import collections
 import ctypes
+import os
 import re
 import statistics
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import torch
 
-import chip_smoke
-from chip_smoke import check, descent_steps, emit, time_ms
+from maxk_tpu_torch.bench.kernel_table import (D, K, V, bench_dataset,
+                                               cell_csr, check,
+                                               descent_steps, emit,
+                                               layer_inputs, ptxas_summary,
+                                               train_config)
+from maxk_tpu_torch.bench.timing import time_fn
 from k1_ab import build, loop_holding
-
-V, D, K = 131072, 256, 32
 
 
 def launcher(lib: Path):
@@ -107,7 +112,6 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     emit("card", nvidia_smi=smi, torch_name=torch.cuda.get_device_name(0))
 
-    from maxk_tpu_torch.data.loaders import synthetic_graph
     from maxk_tpu_torch.models.models import GraphBundle
     from maxk_tpu_torch.native.build import BUILD_DIR, CSRC
     from maxk_tpu_torch.ops.cuda_topk import cbsr_topk_plain
@@ -125,13 +129,12 @@ def main() -> int:
     inputs = [("a_randn", torch.randn(V, D, device=dev, generator=gen)),
               ("b_ties", torch.randint(-3, 4, (V, D), device=dev,
                                        generator=gen).float())]
-    csr = synthetic_graph(V, 50.0, seed=123)
+    csr = cell_csr()
     bundle = GraphBundle.from_csr(csr, norms=("mean",), symmetric=True,
                                   device=dev)
-    with chip_smoke.cbsr_env():
-        layers = chip_smoke.k1_train_inputs(
-            chip_smoke.train_config(4), chip_smoke.bench_dataset(csr, V, D),
-            bundle)
+    # The CBSR route for the recorded step only.
+    with mock.patch.dict(os.environ, {"MAXK_FUSED_MASK": "0"}):
+        layers = layer_inputs(train_config(), bench_dataset(csr), bundle)
     inputs += [(f"c_layer{i}", x) for i, x in enumerate(layers)]
 
     for name, x in inputs:
@@ -145,7 +148,7 @@ def main() -> int:
         ms = {"other": [], "this": []}
         for _ in range(2):
             for n in ("other", "this", "this", "other"):
-                ms[n].append(time_ms(lambda: run[n](x, K)))
+                ms[n].append(time_fn(lambda: run[n](x, K), 3, 1).mean_ms)
         steps = descent_steps(x, K).double()
         emit("k4_ab", input=name, shape=[V, D], k=K,
              mean_steps=float(steps.mean()),
@@ -164,7 +167,7 @@ def main() -> int:
                 "\n".join(c.pop("body")) + "\n")
         sass[n] = counts
     emit("k4_sass", other=str(srcs["other"]), this=str(srcs["this"]),
-         ptxas={n: chip_smoke.ptxas_summary(r) for n, r in ptxas.items()},
+         ptxas={n: ptxas_summary(r) for n, r in ptxas.items()},
          vpl8=sass)
     print(smi)
     return 0

@@ -16,16 +16,17 @@ tree can give several variants. Every build uses the port's nvcc flags
 (records and a work list) or the earlier one (the segment plan's
 arrays), told apart by the library's exports.
 
-The inputs are the cell of chip_smoke.py's phase 19: the mean-normalised
+The inputs are bench/kernel_table.py's cell: the mean-normalised
 synthetic_graph(131072, 50.0, seed=123), D = 256, and the CBSR table of
 a randn (131072, 256) at each k, with bfloat16 or float32 values and
 uint8 selectors. At each k and dtype every build must give the same
 bits as the plain version (--unchecked: only this build is checked, the
 others are stripped variants that time a part); then each OTHER is
-timed against this build with chip_smoke.time_ms twice over in the order
-other, this, this, other. One JSON line per k and dtype, with the SM
-clock nvidia-smi reported while it ran and this kernel's wavefront
-model at that clock (chip_smoke.k5_wavefronts); then one with every
+timed against this build with bench/timing.py's time_fn (a sample of 20
+calls) twice over in the order other, this, this, other. One JSON line
+per k and dtype, with the SM clock nvidia-smi reported while it ran and
+this kernel's wavefront model at that clock
+(kernel_table.k5_wavefronts); then one with every
 build's ptxas registers and spills. The card's name and power limit
 come first.
 """
@@ -39,11 +40,12 @@ from pathlib import Path
 
 import torch
 
-import chip_smoke
-from chip_smoke import check, emit, time_ms
+from maxk_tpu_torch.bench.kernel_table import (D, V, cell_csr, check, emit,
+                                               k5_wavefronts, ptxas_summary,
+                                               sm_clock)
+from maxk_tpu_torch.bench.timing import time_fn
 from k1_ab import build
 
-V, D, AVG_DEGREE, GRAPH_SEED = 131072, 256, 50.0, 123
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -118,7 +120,6 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     emit("card", nvidia_smi=smi, torch_name=torch.cuda.get_device_name(0))
 
-    from maxk_tpu_torch.data.loaders import synthetic_graph
     from maxk_tpu_torch.native.build import BUILD_DIR, CSRC
     from maxk_tpu_torch.ops.cuda_spgemm_cbsr import spgemm_cbsr_plain
     from maxk_tpu_torch.ops.cuda_topk import cbsr_topk_forward
@@ -137,7 +138,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     g = DeviceCSR.from_csr(
-        synthetic_graph(V, AVG_DEGREE, seed=GRAPH_SEED).normalize("mean"),
+        cell_csr().normalize("mean"),
         dev)
     x = torch.randn(V, D, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0))
@@ -154,15 +155,14 @@ def main() -> int:
                           f"{dname}")
             del plain
             ms = {n: [] for n in run}
-            with chip_smoke.sm_clock() as mhz:
+            with sm_clock() as mhz:
                 for other in args.others:
                     for _ in range(2):
                         for n in (other, "this", "this", other):
-                            ms[n].append(time_ms(lambda: run[n](g, vc,
-                                                                sel8)))
-            model = chip_smoke.k5_wavefronts(g, sel8, k,
-                                             vc.element_size(),
-                                             statistics.median(mhz))
+                            ms[n].append(time_fn(
+                                lambda: run[n](g, vc, sel8), 3, 1).mean_ms)
+            model = k5_wavefronts(g, sel8, k, vc.element_size(),
+                                  statistics.median(mhz))
             emit("k5_ab", k=k, values=dname, V=V, E=g.n_edges, D=D, ms=ms,
                  mean_ms={n: statistics.mean(t) for n, t in ms.items()},
                  over_this={n: statistics.mean(t)
@@ -175,7 +175,7 @@ def main() -> int:
         del values, selector, sel8
 
     emit("k5_ptxas", sources={n: [str(s), f] for n, (s, f) in srcs.items()},
-         ptxas={n: chip_smoke.ptxas_summary(r) for n, r in ptxas.items()})
+         ptxas={n: ptxas_summary(r) for n, r in ptxas.items()})
     print(smi)
     return 0
 

@@ -15,7 +15,7 @@ constant changed (sed), e.g. K7's edges in flight a lane. Every build
 uses the port's nvcc flags (k1_ab.build) and is called through the same
 C interface.
 
-The inputs are chip_smoke.py's cell: the mean-normalised
+The inputs are bench/kernel_table.py's cell: the mean-normalised
 synthetic_graph(131072, 50.0, seed=123), E = 13,107,200, D = 256, x a
 randn (131072, 256); K7's column-scale table is quantize_columns(x), its
 row-scale table K6's int8 mode on the k = 32 CBSR rows of x. With
@@ -25,8 +25,9 @@ give the same bits: K7 in both scale modes at both slabs (and slab 128
 the same as slab 256; not the --unchecked builds, stripped variants that
 time a part), K6's int8 q and scale (also equal to the plain
 version), K6's float32 and bfloat16 outputs. Then each OTHER is timed
-against this build with chip_smoke.time_ms twice over in the order other,
-this, this, other: K7 per mode and slab, K6's int8 mode and its float32
+against this build with bench/timing.py's time_fn (a sample of 20
+calls) twice over in the order other, this, this, other: K7 per mode and
+slab, K6's int8 mode and its float32
 and bfloat16 outputs (float32 values, k = 32). One JSON line per shape
 with the SM clock nvidia-smi reported while it ran and K7's values a
 clock an SM (E * D over the time, 132 SMs, the median clock); then one
@@ -47,12 +48,12 @@ from pathlib import Path
 
 import torch
 
-import chip_smoke
-from chip_smoke import check, emit, time_ms
+from maxk_tpu_torch.bench.kernel_table import (D, K, SMS, cell_csr, check,
+                                               count_int_to_float,
+                                               emit, ptxas_summary,
+                                               sass_functions, sm_clock)
+from maxk_tpu_torch.bench.timing import time_fn
 from k1_ab import build
-
-V, D, K, AVG_DEGREE, GRAPH_SEED = 131072, 256, 32, 50.0, 123
-SMS = 132
 
 
 def launchers(k7_lib: Path, k6_lib: Path):
@@ -129,7 +130,7 @@ def sass_counts(lib: Path, listing: Path) -> dict:
     """Per instantiation of spmm_int8_segment_kernel: its I2F* and I2FP*
     instructions and the count of each of OPCODES; the SASS listings go
     to `listing`."""
-    funcs = chip_smoke.sass_functions(str(lib), "spmm_int8_segment_kernel")
+    funcs = sass_functions(str(lib), "spmm_int8_segment_kernel")
     check(len(funcs) == 4, f"{lib.name}: {len(funcs)} instantiations of "
                            f"spmm_int8_segment_kernel in SASS, not 4")
     listing.write_text("".join(funcs.values()))
@@ -137,7 +138,7 @@ def sass_counts(lib: Path, listing: Path) -> dict:
     for name, f in funcs.items():
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
                          f)
-        out[name] = {"int_to_float": chip_smoke.count_int_to_float(f),
+        out[name] = {"int_to_float": count_int_to_float(f),
                      **{op: ops.count(op) for op in OPCODES}}
     return out
 
@@ -162,15 +163,16 @@ def k7_round(name, g, tables, run, others, unchecked=()) -> dict:
         del ref
     ms = {f"{mode}_slab{slab}": {n: [] for n in run}
           for mode in tables for slab in (128, 256)}
-    with chip_smoke.sm_clock() as mhz:
+    with sm_clock() as mhz:
         for mode, (q, sc, row) in tables.items():
             for slab in (128, 256):
                 cell = ms[f"{mode}_slab{slab}"]
                 for other in others:
                     for _ in range(2):
                         for n in (other, "this", "this", other):
-                            cell[n].append(time_ms(
-                                lambda: run[n][0](g, q, sc, row, slab)))
+                            cell[n].append(time_fn(
+                                lambda: run[n][0](g, q, sc, row, slab), 3,
+                                1).mean_ms)
     clock = statistics.median(mhz)
     mean = {c: {n: statistics.mean(t) for n, t in by.items()}
             for c, by in ms.items()}
@@ -209,7 +211,8 @@ def k6_round(values, selector, run, others) -> dict:
         for other in others:
             for _ in range(2):
                 for n in (other, "this", "this", other):
-                    ms[c][n].append(time_ms(lambda: fn(run[n])))
+                    ms[c][n].append(time_fn(lambda: fn(run[n]), 3,
+                                            1).mean_ms)
     mean = {c: {n: statistics.mean(t) for n, t in by.items()}
             for c, by in ms.items()}
     return dict(V=values.shape[0], k=values.shape[1], D=D,
@@ -238,7 +241,6 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     emit("card", nvidia_smi=smi, torch_name=torch.cuda.get_device_name(0))
 
-    from maxk_tpu_torch.data.loaders import synthetic_graph
     from maxk_tpu_torch.native.build import BUILD_DIR, CSRC
     from maxk_tpu_torch.ops.cbsr import cbsr_expand_int8, cbsr_topk
     from maxk_tpu_torch.ops.graph import DeviceCSR
@@ -252,9 +254,8 @@ def main() -> int:
     for i, (n, csrc) in enumerate(trees.items()):
         libs = [BUILD_DIR / "k7_ab" / f"{src}_{i}.so"
                 for src in ("spmm_int8", "cbsr_expand")]
-        ptxas[n] = {src: chip_smoke.ptxas_summary(
-            build(csrc / f"{src}.cu", lib))
-            for src, lib in zip(("spmm_int8", "cbsr_expand"), libs)}
+        ptxas[n] = {src: ptxas_summary(build(csrc / f"{src}.cu", lib))
+                    for src, lib in zip(("spmm_int8", "cbsr_expand"), libs)}
         i2f[n] = sass_counts(libs[0], out_dir / f"spmm_int8_{i}.sass")
         run[n] = launchers(*libs)
 
@@ -269,7 +270,7 @@ def main() -> int:
             "row": (*cbsr_expand_int8(values, selector, D), True)}
 
     g = DeviceCSR.from_csr(
-        synthetic_graph(V, AVG_DEGREE, seed=GRAPH_SEED).normalize("mean"),
+        cell_csr().normalize("mean"),
         dev)
     x, values, selector, tabs = tables(g)
     emit("k7_ab", **k7_round("cell", g, tabs, run, args.others,

@@ -29,8 +29,9 @@ The gather rate is measured: ``gather_probe`` (csrc/gather_probe.cu, K2's
 reads alone, 4 loads in flight a lane as in K2) over the cols of
 synthetic_graph(131072, 50.0, seed=123), E = 13,107,200, into a bfloat16
 x of 256 columns read 0.8427 ms, 7.96e12 bytes/s, on an NVIDIA H100
-80GB HBM3 at a 700 W power limit (chip_smoke.py phase 17, which measures
-it again on every run).
+80GB HBM3 at a 700 W power limit (``python -m
+maxk_tpu_torch.bench.kernel_table`` measures it again: its gather_rate
+line).
 
 ``project_multichip`` projects row-partitioned training over several
 H100s joined by NVLink (``maxk_tpu/bench/roofline.py``'s projection,
@@ -177,8 +178,8 @@ NVLINK_GBPS = 450.0
 # K2's rate at the cell (PERF.md section 5): 6.71 GB of bfloat16 rows
 # gathered a launch (E = 13,107,200, D = 256) in 1.1227 ms, 6.00e12
 # bytes/s, on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-# (chip_smoke.py phase 12). scaling_bench measures it again on a sweep
-# that holds one graph shard.
+# (bench/kernel_table.py's gather_rate line). scaling_bench measures it
+# again on a sweep that holds one graph shard.
 K2_BYTES_PER_S = 6.00e12
 
 

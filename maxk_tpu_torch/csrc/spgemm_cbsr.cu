@@ -21,9 +21,9 @@
 // stage, one wavefront a clock. An access takes as many wavefronts as the
 // most lanes on one bank (about 3.25 of 32 entries over 256 columns), so
 // at k = 32 an edge costs ~6.5 wavefronts of scatter, and the whole edge
-// ~8 (chip_smoke.py k5_wavefronts counts them from the data): ~0.4 ms on
-// 132 SMs at 1.98 GHz. That wavefront floor is what the design works
-// against (PERF.md).
+// ~8 (bench/kernel_table.py's k5_wavefronts counts them from the data):
+// ~0.4 ms on 132 SMs at 1.98 GHz. That wavefront floor is what the design
+// works against (PERF.md).
 //
 // Design:
 // - With bfloat16 values a pack pass (spgemm_cbsr_pack_kernel, in the

@@ -38,12 +38,12 @@ from maxk_tpu_torch.ops.cuda_spmm import _PLAIN_CHUNK_ELEMS, _plan, finish_plain
 from maxk_tpu_torch.ops.graph import DeviceCSR
 
 # Columns a warp covers in one pass over the table: 128 (4-byte loads) or
-# 256 (8-byte loads, D % 8 == 0). The two give the same bits. chip_smoke.py
-# times both at the cell (phase 23) and at the reddit shape (phase 20); a
-# pass costs each edge its CSR loads, shuffles and loop again, so 128 took
-# 1.4-1.5 times as long at both, though at the reddit shape a 128-column
-# slab of the int8 table (29.8 MB) fits the 50 MB L2 and the whole table
-# (59.6 MB) does not (PERF.md).
+# 256 (8-byte loads, D % 8 == 0). The two give the same bits. k7_ab.py
+# times both at the 131,072-node cell and, with --reddit, at the reddit
+# shape; a pass costs each edge its CSR loads, shuffles and loop again, so
+# 128 took 1.4-1.5 times as long at both, though at the reddit shape a
+# 128-column slab of the int8 table (29.8 MB) fits the 50 MB L2 and the
+# whole table (59.6 MB) does not (PERF.md).
 SLAB = 256
 # The float32 2**23 + 128: K7 puts q + 128 in the low byte of 2**23's bits.
 _MAGIC_BITS = 0x4B000000

@@ -27,8 +27,8 @@ from maxk_tpu_torch import obs
 from maxk_tpu_torch.data.warp4 import generate_warp4
 
 # K2's segment length: a warp of the SpMM kernel sums at most this many
-# consecutive edges of one row. Chosen by the sweep over
-# {128, 256, 512, 1024} in chip_smoke.py's kernel phase (PERF.md).
+# consecutive edges of one row. Chosen by a sweep of K2 over
+# {128, 256, 512, 1024} at the 131,072-node cell (PERF.md).
 SEG_LEN = 256
 
 

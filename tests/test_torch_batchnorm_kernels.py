@@ -30,7 +30,11 @@ equal. The whole op on the card against the CPU op (training, and the
 evaluation differentiated): rtol 1e-5, atol 1e-5 (the statistics' sums
 in another order shift the mean by a few ulps of sum |x| / n, moved
 through rstd * w), and the parameters' gradients, which are column sums,
-within 1e-5 sum |terms|.
+within 1e-5 sum |terms|. At the ogbn-products shape, GNN_res's (V, D)
+activation as the ``gnnres-products.fit`` cell runs it, every sum is
+also held to float64 sums of its terms taken in chunks of rows, within
+1e-6 of sum |terms| a column: a float32 sum that drifts with the row
+count shows only at that size.
 """
 
 import types
@@ -40,6 +44,7 @@ import pytest
 import torch
 
 import torch_threads  # noqa: F401  (one torch thread a test worker)
+from card_inputs import card  # noqa: F401
 from maxk_tpu_torch import ops
 from maxk_tpu_torch.data.datasets import make_synthetic_dataset
 from maxk_tpu_torch.models.models import BatchNorm
@@ -298,10 +303,8 @@ def test_the_evaluation_under_no_grad_keeps_no_graph():
 
 
 @pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+def cuda_device(card):
+    return card
 
 
 def _groups(d: int, vec: bool) -> int:
@@ -486,3 +489,65 @@ def test_gnnres_launches_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert {k: counts()[k] - mid[k] for k in KERNELS} == \
         {"bn_sums": 0, "bn_affine": 3, "bn_dx": 0}
+
+
+# GNN_res's (V, D) activation at the ogbn-products shape, every row valid.
+PRODUCTS_SHAPE = (2_449_029, 256)
+# A sum's error against the float64 sum, over sum |terms| a column:
+# (groups + 6) 2**-24 is 6.0e-7 at D = 256 (4 row groups); a slab lost or
+# added moves a sum by ~1/396 of it.
+PRODUCTS_SUM_RTOL = 1e-6
+
+
+@pytest.mark.cuda
+def test_passes_at_the_products_shape(cuda_device):
+    """randn x * 2 + 0.5 and randn dy at PRODUCTS_SHAPE: both forms of
+    bn_sums within PRODUCTS_SUM_RTOL of sum |terms| of float64 sums of the
+    same terms (chunks of 2**18 rows); bn_affine within 2**-22 and bn_dx
+    within 2**-21 of their terms' magnitudes of their plain versions."""
+    v, d = PRODUCTS_SHAPE
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(v, d, device=cuda_device, generator=gen) * 2.0 + 0.5
+    dy = torch.randn(v, d, device=cuda_device, generator=gen)
+    w = torch.rand(d, device=cuda_device, generator=gen) + 0.5
+    b = torch.randn(d, device=cuda_device, generator=gen)
+    chunk = 1 << 18
+
+    def share_of_sum_abs(got, terms_of):
+        """max over columns of |got - sum| / sum |terms|, both in float64
+        over chunks of rows."""
+        want = torch.zeros(d, dtype=torch.float64, device=cuda_device)
+        mag = torch.zeros_like(want)
+        for r in range(0, v, chunk):
+            t = terms_of(slice(r, r + chunk))
+            want += t.sum(dim=0)
+            mag += t.abs().sum(dim=0)
+        return float(((got.double() - want).abs() / mag).max())
+
+    s1, s2 = bn_sums(x)
+    mean = s1 / v
+    rstd = torch.rsqrt(torch.clamp(s2 / v - mean * mean, min=0.0) + EPS)
+    q1, q2 = bn_sums(dy, norm=(x, mean, rstd))
+    m64, r64 = mean.double(), rstd.double()
+    for got, terms_of in (
+            (s1, lambda i: x[i].double()),
+            (s2, lambda i: x[i].double() ** 2),
+            (q1, lambda i: dy[i].double()),
+            (q2, lambda i: dy[i].double() * ((x[i].double() - m64) * r64))):
+        assert share_of_sum_abs(got, terms_of) <= PRODUCTS_SUM_RTOL
+
+    scale = rstd * w
+    err = (bn_affine(x, mean, scale, b)
+           - bn_affine_plain(x, mean, scale, b)).abs_()
+    bound = ((x - mean) * scale).abs_().add_(b.abs()).mul_(2.0 ** -22)
+    assert float(err.div_(bound.clamp_min_(1e-30)).max()) <= 1.0
+    del err, bound
+
+    c_dy = -scale * (q1 / v)
+    c_dyx = -scale * (q2 / v)
+    err = (bn_dx(dy, x, mean, rstd, scale, c_dy, c_dyx)
+           - bn_dx_plain(dy, x, mean, rstd, scale, c_dy, c_dyx)).abs_()
+    mag = (dy * scale).abs_().add_(c_dy.abs())
+    mag.add_(torch.sub(x, mean).mul_(rstd).mul_(c_dyx).abs_())
+    assert float(err.div_(mag.mul_(2.0 ** -21).clamp_min_(1e-30)).max()) \
+        <= 1.0

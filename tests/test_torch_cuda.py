@@ -1,5 +1,6 @@
 """K1-K7, and the wide top-k kernel for D > 1024, on the card against
-their plain PyTorch versions.
+their plain PyTorch versions; every kernel's build, with no spill in the
+wide kernel and no int-to-float conversion in K7's SASS.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the ``cuda_device`` fixture, never at import). Run on a machine with an
@@ -11,27 +12,36 @@ H100 from the repo root:
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine does not need.) Tolerances: K1, K4 and both entries of the wide
 kernel are bit-equal to their plain versions (same integer descent), and
-K4 expanded is bit-equal to K1's y; K3 is exact (it moves bits); K2 at float32 agrees at rtol=1e-5,
+K4 expanded is bit-equal to K1's y, on every kind of input (every exit
+of the descent) also at the cell's 131,072 rows, and the wide kernel on
+8,192 rows a D in shared memory (1,024 at its cap, 256 streamed); K3 is exact (it moves bits); K2 at float32 agrees at rtol=1e-5,
 atol=1e-5, since CUDA index_add_ sums in another order than the kernel's
 CSR order. On the split-boundary graphs (a star row, rows of S-1, S, S+1
 and 2S+1 edges) K2 is held to that plus the two-order bound of each
 row's sum, 2 n_r 2**-24 sum_e |v_e x_e|, since the star row sums
 hundreds of terms. K2 is bit-for-bit deterministic: two calls give the
-same bits. K5 equals its plain version and K2 on the expanded operand
-(torch.equal: all three sum each column in edge order with one rounding
-per term), and two calls give the same bits, at every k where its
-dispatch changes, on graphs with an odd number of segments, a zero-degree
-row between split rows, and tens of thousands of segments; its pack pass
-equals its plain version. K6 (cbsr_expand) is bit-equal to its plain
-version (it moves values, converts them with one rounding, and in its
-int8 mode computes the plain version's fma, IEEE quotient and rint). K7
-(the int8 SpMM) agrees with its plain version to the two-order bound of
-each row's sum, 2 (n_r + 1) 2**-24 sum_e |w_e q_e scale| (the + 1: the
-column scale's multiply), in both scale modes and slab widths; two
-calls give the same bits, and so do its two slab widths. The evaluation's
-counts made on the card (``metrics.micro_f1_counts``: argmax with ties
-and a NaN, and multilabel tp, fp, fn) give the host path's metrics
-exactly (``tests/test_torch_eval.py``'s cases, and at the Reddit shape).
+same bits. The same holds on the 131,072-node cell graph of
+``bench/kernel_table.py`` (its hub rows and its rows past edge 2**31 /
+D), where K2 at float32 also agrees with torch.sparse.mm at rtol 1e-5,
+atol 1e-5, and on split-row graphs of 4,096 rows at the default S,
+where each row of K2 lies within its two-order bound of the plain
+version's and torch.sparse's. K5 equals its plain version and K2 on the
+expanded operand (torch.equal: all three sum each column in edge order
+with one rounding per term), and two calls give the same bits, at every
+k where its dispatch changes, on graphs with an odd number of segments,
+a zero-degree row between split rows, and tens of thousands of segments,
+and at the cell; its pack pass equals its plain version. K6
+(cbsr_expand) is bit-equal to its plain version (it moves values,
+converts them with one rounding, and in its int8 mode computes the plain
+version's fma, IEEE quotient and rint). K7 (the int8 SpMM) agrees with
+its plain version to the two-order bound of each row's sum, 2 (n_r + 1)
+2**-24 sum_e |w_e q_e scale| (the + 1: the column scale's multiply), in
+both scale modes and slab widths, and at the cell also at rtol 1e-5,
+atol 1e-5; two calls give the same bits, and so do its two slab widths.
+The evaluation's counts made on the card (``metrics.micro_f1_counts``:
+argmax with ties and a NaN, and multilabel tp, fp, fn) give the host
+path's metrics exactly (``tests/test_torch_eval.py``'s cases, and at the
+Reddit shape).
 """
 
 import dataclasses
@@ -40,6 +50,10 @@ import numpy as np
 import pytest
 import torch
 
+from maxk_tpu_torch.bench.kernel_table import (cell_csr, count_int_to_float,
+                                               ptxas_summary, sass_functions,
+                                               torch_sparse)
+from maxk_tpu_torch.native.build import KERNELS, build_all, load
 from maxk_tpu_torch.ops.cbsr import cbsr_expand
 from maxk_tpu_torch.ops.cuda_expand import (cbsr_expand_forward,
                                             cbsr_expand_int8,
@@ -62,15 +76,15 @@ from maxk_tpu_torch.ops.graph import SEG_LEN, CSRGraph, DeviceCSR
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
 from maxk_tpu_torch.train import metrics
 from test_torch_eval import counted_metrics, eval_case
+from card_inputs import (N_SMALL, N_SPLIT, card,  # noqa: F401
+                         k7_bound, small_csr, split_csr, sum_error_ratio)
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+def cuda_device(card):
+    return card
 
 
 def _x(kind, v, d, seed):
@@ -144,6 +158,39 @@ def test_k4_bit_equal_to_plain_and_to_k1(cuda_device, d, k, kind):
                        y.view(torch.int32))
 
 
+# The cell's rows: K1 and K4 on every kind of input at the main path's
+# row count.
+CELL_ROWS = 131072
+
+
+@pytest.mark.parametrize("kind", KINDS + ["randn"])
+@pytest.mark.parametrize("d", [200, 256, 384])
+def test_k1_and_k4_bit_equal_to_plain_at_the_cells_rows(cuda_device, d,
+                                                        kind):
+    """131,072 rows of each kind (and plain randn) at k = 1, 8, 32, 33,
+    64 and D: K1 and K4 bit-equal to their plain versions, K4 expanded
+    bit-equal to K1's y."""
+    x = _x(kind, CELL_ROWS, d, seed=d).to(cuda_device)
+    for k in (1, 8, 32, 33, 64, d):
+        y, mask = maxk_forward(x, k)
+        y_ref, m_ref = maxk_forward_plain(x, k)
+        values, selector = cbsr_topk_forward(x, k)
+        v_ref, s_ref = cbsr_topk_plain(x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(y.view(torch.int32), y_ref.view(torch.int32)), k
+        assert torch.equal(mask, m_ref), k
+        assert torch.equal(values.view(torch.int32),
+                           v_ref.view(torch.int32)), k
+        assert torch.equal(selector, s_ref), k
+        assert torch.equal(cbsr_expand(values, selector, d)
+                           .view(torch.int32), y.view(torch.int32)), k
+
+
+# The wide kernel's rows by D: 8,192 in shared memory, 1,024 at the plan's
+# cap and one column past it, 256 well past it (streamed).
+WIDE_ROWS = {WIDE_CAP_D: 1024, WIDE_CAP_D + 1: 1024, 20000: 256}
+
+
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("k", [1, 32, "D"])
 @pytest.mark.parametrize("d", [1025, 1100, 2048, 4096, WIDE_CAP_D,
@@ -151,10 +198,10 @@ def test_k4_bit_equal_to_plain_and_to_k1(cuda_device, d, k, kind):
 def test_wide_kernel_bit_equal_to_plain(cuda_device, d, k, kind):
     """Both entries of csrc/topk_wide.cu, through the public ops (which
     send D > 1024 to it) and called directly; the row in shared memory up
-    to the plan's cap, streamed past it (a few rows)."""
+    to the plan's cap, streamed past it."""
     k = d if k == "D" else k
     in_smem = wide_plan(d).in_smem
-    x = _x(kind, 256 if in_smem else 32, d,
+    x = _x(kind, WIDE_ROWS.get(d, 8192), d,
            seed=d + (0 if k == d else k)).to(cuda_device)
     before = (maxk_forward_wide.launches, cbsr_topk_forward_wide.launches,
               maxk_forward_wide.streamed, cbsr_topk_forward_wide.streamed)
@@ -172,6 +219,8 @@ def test_wide_kernel_bit_equal_to_plain(cuda_device, d, k, kind):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert torch.equal(mask, m_ref) and torch.equal(m_w, m_ref)
     assert torch.equal(selector, s_ref)
+    assert torch.equal(cbsr_expand(values, selector, d).view(torch.int32),
+                       y.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -506,14 +555,6 @@ def test_k6_drops_out_of_range_selectors(cuda_device):
     assert torch.equal(q, q_ref) and torch.equal(scale, s_ref)
 
 
-def _k7_bound(g, q, scale, row_scale):
-    """2 (n_r + 1) 2**-24 sum_e |w_e| |q[col_e]| scale."""
-    g_abs = dataclasses.replace(g, values=g.values.abs())
-    terms = spmm_int8_plain(g_abs, q.abs(), scale.abs(), row_scale)
-    n = torch.diff(g.indptr).to(torch.float32)[:, None]
-    return 2 * (n + 1) * 2.0 ** -24 * terms.double() + 1e-30
-
-
 @pytest.mark.parametrize("slab", [128, 256])
 @pytest.mark.parametrize("row_scale", [False, True])
 @pytest.mark.parametrize("d", [4, 64, 132, 256, 512])
@@ -534,7 +575,7 @@ def test_k7_matches_plain(cuda_device, kind, d, row_scale, slab):
     ref = spmm_int8_plain(g, q, scale, row_scale)
     torch.cuda.synchronize()
     assert bool(torch.all((out.double() - ref.double()).abs()
-                          <= _k7_bound(g, q, scale, row_scale)))
+                          <= k7_bound(g, q, scale, row_scale)))
     empty = torch.diff(g.indptr) == 0
     assert torch.all(out[empty] == 0)
     again = spmm_int8_csr(g, q, scale, row_scale, slab)
@@ -594,3 +635,134 @@ def test_eval_counts_on_the_card_equal_the_host_metrics(cuda_device,
     want = [metrics.evaluate_logits(logits, labels, m, "micro_f1")
             for m in masks]
     assert counted_metrics(logits, labels, masks, cuda_device) == want
+
+
+def test_every_kernel_builds_and_the_wide_kernel_spills_nothing(
+        cuda_device):
+    """nvcc builds every kernel source at once; topk_wide.cu's 8
+    instantiations (two entries, four widths of a lane's keys) use no
+    local memory for spills."""
+    built = build_all()
+    assert set(built) == set(KERNELS)
+    wide = ptxas_summary(built["topk_wide"]["ptxas"])
+    assert len(wide) == 8, wide
+    assert all(r.get("spill_stores", 1) == r.get("spill_loads", 1) == 0
+               for r in wide), wide
+
+
+def test_k2_on_the_small_graph(cuda_device):
+    """16,384 rows, a quarter of them empty: float32 at rtol 1e-5, atol
+    1e-5 of the plain version, bfloat16 within a mean error of 1e-3."""
+    g = DeviceCSR.from_csr(small_csr(), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(N_SMALL, 256, device=cuda_device, generator=gen)
+    out = spmm_csr(g, x)
+    torch.testing.assert_close(out, spmm_csr_plain(g, x), rtol=1e-5,
+                               atol=1e-5)
+    assert bool(torch.all(out[torch.diff(g.indptr) == 0] == 0))
+    x16 = x.to(torch.bfloat16)
+    assert float((spmm_csr(g, x16) - spmm_csr_plain(g, x16)).abs()
+                 .mean()) < 1e-3
+
+
+@pytest.mark.parametrize("d", [256, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["star", "boundary"])
+def test_k2_split_rows_within_two_orders_of_plain_and_torch_sparse(
+        cuda_device, kind, dtype, d):
+    """Rows split at the plan's S (a star row of 40 S + 3 edges; rows of
+    S - 1, S, S + 1, 2 S + 1): each row within the two-order bound of the
+    plain version's, and at float32 of torch.sparse's, which sums without
+    the plan."""
+    g = DeviceCSR.from_csr(split_csr(kind), cuda_device)
+    assert g.plan.n_partials > 0
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn(N_SPLIT, d, device=cuda_device,
+                    generator=gen).to(dtype)
+    out = spmm_csr(g, x)
+    assert sum_error_ratio(out, spmm_csr_plain(g, x), g,
+                           x.float().abs()) <= 1.0
+    assert bool(torch.all(out[torch.diff(g.indptr) == 0] == 0))
+    if dtype == torch.float32:
+        lib = torch.sparse.mm(torch_sparse(g), x)
+        assert sum_error_ratio(out, lib, g, x.abs()) <= 1.0
+
+
+@pytest.fixture(scope="module")
+def cell_graph(card):
+    """The mean-normalised 131,072-node cell graph on the card, and x of
+    (131072, 256) float32."""
+    g = DeviceCSR.from_csr(cell_csr().normalize("mean"), card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    return g, torch.randn(g.n_nodes, 256, device=card, generator=gen)
+
+
+def test_k2_at_the_cell(cell_graph):
+    """At float32 within rtol 1e-5, atol 1e-5 of torch.sparse.mm (rows
+    past edge 2**31 / D among them), at bfloat16 within 1e-4 of the plain
+    version; at both, two calls give the same bits on the hub graph."""
+    g, x = cell_graph
+    out = spmm_csr(g, x)
+    torch.testing.assert_close(out, torch.sparse.mm(torch_sparse(g), x),
+                               rtol=1e-5, atol=1e-5)
+    x16 = x.to(torch.bfloat16)
+    out16 = spmm_csr(g, x16)
+    assert float((out16 - spmm_csr_plain(g, x16)).abs().max()) < 1e-4
+    for xx, first in ((x16, out16), (x, out)):
+        assert torch.equal(spmm_csr(g, xx).view(torch.int32),
+                           first.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [16, 32, 64])
+def test_k5_at_the_cell(cell_graph, k):
+    """K5 on bfloat16 values equals K2 on the expanded operand; at k = 32,
+    the main path's shape, also its plain version, and its pack pass
+    equals the pack's plain version."""
+    g, x = cell_graph
+    values, selector = cbsr_topk_forward(x, k)
+    vb, sel8 = values.to(torch.bfloat16), selector.to(torch.uint8)
+    out = spgemm_cbsr_csr(g, vb, sel8, 256)
+    assert torch.equal(out, spmm_csr(g, cbsr_expand(vb, selector, 256)))
+    if k == 32:
+        assert torch.equal(out, spgemm_cbsr_plain(g, vb, sel8, 256))
+        assert torch.equal(pack_records(vb, sel8),
+                           pack_records_plain(vb, sel8))
+
+
+def test_k7_has_no_int_to_float_conversion(cuda_device):
+    """K7 converts its int8 values with a byte permute and an add: no
+    I2F or I2FP in the SASS of spmm_int8_segment_kernel's 4
+    instantiations."""
+    sass = sass_functions(load("spmm_int8")._name,
+                          "spmm_int8_segment_kernel")
+    assert len(sass) == 4
+    assert {n: count_int_to_float(f) for n, f in sass.items()} == {
+        n: 0 for n in sass}
+
+
+@pytest.mark.parametrize("row_scale", [False, True])
+def test_k7_at_the_cell(cell_graph, row_scale):
+    """Both scale modes (the per-column table of x, the per-row table of
+    its k = 32 CBSR rows) and slab widths at the cell, whose rows past
+    edge 2**31 / D are among those compared: within rtol 1e-5, atol 1e-5
+    of the plain version and each row's two-order bound; two calls, and
+    the two slabs, give the same bits."""
+    from maxk_tpu_torch.ops.spmm import quantize_columns
+    g, x = cell_graph
+    assert int((g.indptr[:-1] * 256 > 2**31).sum()) > 0
+    if row_scale:
+        q, scale = cbsr_expand_int8(*cbsr_topk_forward(x, 32), 256)
+    else:
+        q, scale = quantize_columns(x)
+    ref = spmm_int8_plain(g, q, scale, row_scale)
+    bound = k7_bound(g, q, scale, row_scale)
+    outs = []
+    for slab in (128, 256):
+        out = spmm_int8_csr(g, q, scale, row_scale, slab)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        assert bool(torch.all((out.double() - ref.double()).abs() <= bound))
+        assert bool(torch.all(out[torch.diff(g.indptr) == 0] == 0))
+        assert torch.equal(spmm_int8_csr(g, q, scale, row_scale, slab)
+                           .view(torch.int32), out.view(torch.int32))
+        outs.append(out)
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))

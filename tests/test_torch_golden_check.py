@@ -1,13 +1,14 @@
-"""chip_smoke.py's golden checks, on the CPU: the one-sided Fisher exact
-tail test, and what check_golden holds on made-up runs. Exact arithmetic:
-the p values are compared at rel 1e-12."""
+"""The golden checks of maxk_tpu_torch/tools/golden_accuracy.py, on the
+CPU: the one-sided Fisher exact tail test, and what check_golden holds
+on made-up runs. Exact arithmetic: the p values are compared at rel
+1e-12."""
 
 import math
 
 import pytest
 
 import torch_threads  # noqa: F401  (one torch thread a test worker)
-import chip_smoke as cs
+from maxk_tpu_torch.tools import golden_accuracy as ga
 
 
 @pytest.mark.parametrize("k,n,k_ref,n_ref,p", [
@@ -19,7 +20,7 @@ import chip_smoke as cs
     (1, 32, 1, 32, (32 * 32 + math.comb(32, 2)) / math.comb(64, 2)),
 ])
 def test_tail_p(k, n, k_ref, n_ref, p):
-    assert cs.tail_p(k, n, k_ref, n_ref) == pytest.approx(p, rel=1e-12)
+    assert ga.tail_p(k, n, k_ref, n_ref) == pytest.approx(p, rel=1e-12)
 
 
 def _runs(model, tests, seeds=None):
@@ -28,16 +29,16 @@ def _runs(model, tests, seeds=None):
 
 
 def _gnn_res(tests):
-    return cs.golden_row("gnn_res", _runs(
-        "gnn_res", tests, cs.GOLDEN_REF["gnn_res"]["seeds"]))
+    return ga.golden_row("gnn_res", _runs(
+        "gnn_res", tests, ga.GOLDEN_REF["gnn_res"]["seeds"]))
 
 
 def test_row_models_held_to_baseline():
-    ok = cs.golden_row("gcn", _runs("gcn", [0.999] * 16))
-    cs.check_golden(ok)
-    low = cs.golden_row("gcn", _runs("gcn", [0.97] * 16))
+    ok = ga.golden_row("gcn", _runs("gcn", [0.999] * 16))
+    ga.check_golden(ok)
+    low = ga.golden_row("gcn", _runs("gcn", [0.97] * 16))
     with pytest.raises(RuntimeError, match="from 0.999"):
-        cs.check_golden(low)
+        ga.check_golden(low)
 
 
 def test_gnn_res_two_low_seeds_pass():
@@ -46,26 +47,26 @@ def test_gnn_res_two_low_seeds_pass():
     tests = [0.9748] * 30 + [0.66, 0.926]
     row = _gnn_res(tests)
     assert row["n_below_tail"] == 2
-    cs.check_golden(row)
+    ga.check_golden(row)
 
 
 def test_gnn_res_collapse_on_a_quarter_fails():
     row = _gnn_res([0.99] * 24 + [0.5] * 8)
     with pytest.raises(RuntimeError, match="from the reference's"):
-        cs.check_golden(row)
+        ga.check_golden(row)
 
 
 def test_gnn_res_tail_fails_with_a_good_mean():
     """Five seeds just below the tail and the rest high: the mean holds,
     the tail does not."""
     row = _gnn_res([0.98] * 27 + [0.92] * 5)
-    assert abs(row["reference_gap"]) <= cs.GOLDEN_TOL
+    assert abs(row["reference_gap"]) <= ga.GOLDEN_TOL
     with pytest.raises(RuntimeError, match="Fisher"):
-        cs.check_golden(row)
+        ga.check_golden(row)
 
 
 def test_gnn_res_other_seeds_fail():
-    row = cs.golden_row("gnn_res", _runs("gnn_res", [0.98] * 32,
+    row = ga.golden_row("gnn_res", _runs("gnn_res", [0.98] * 32,
                                          range(200, 232)))
     with pytest.raises(RuntimeError, match="not the reference's"):
-        cs.check_golden(row)
+        ga.check_golden(row)

@@ -1,4 +1,4 @@
-"""chip_smoke.py's ReluTape, on the CPU: the card's ReLU signs recorded,
+"""tests/card_tapes.py's ReluTape, on the CPU: the card's ReLU signs recorded,
 then replayed onto the CPU's run, where a sign may differ only at a near
 tie. Both sides run on the CPU here; the tape does not ask the device."""
 
@@ -6,7 +6,7 @@ import pytest
 import torch
 
 import torch_threads  # noqa: F401  (one torch thread a test worker)
-import chip_smoke as cs
+import card_tapes
 
 
 def _x(rows: int = 6, cols: int = 16) -> torch.Tensor:
@@ -21,7 +21,7 @@ def _record(tape, xs):
 def test_replay_applies_the_recorded_signs_at_a_near_tie():
     x = _x()
     x[2, 5] = 1e-7              # the "card" keeps it
-    tape = cs.ReluTape()
+    tape = card_tapes.ReluTape()
     card = _record(tape, [x])[0]
     assert torch.equal(card, torch.relu(x))
     xr = x.clone()
@@ -39,7 +39,7 @@ def test_replay_applies_the_recorded_signs_at_a_near_tie():
 
 def test_replay_refuses_a_sign_away_from_zero():
     x = _x()
-    tape = cs.ReluTape()
+    tape = card_tapes.ReluTape()
     _record(tape, [x])
     xr = x.clone()
     i = int(torch.argmax(x[1]))
@@ -52,7 +52,7 @@ def test_replay_refuses_a_sign_away_from_zero():
 
 def test_replay_in_order_without_flips_is_relu():
     xs = [_x(), _x(3, 8) - 0.5]
-    tape = cs.ReluTape()
+    tape = card_tapes.ReluTape()
     _record(tape, xs)
     assert len(tape.xs) == 2
     with tape.replay():

@@ -279,8 +279,9 @@ def test_k5_wrapper_refuses_what_it_cannot_take():
 def test_sage_step_under_flag_matches_cbsr_route(monkeypatch):
     """One SAGE step at bf16 compute: the same loss as the CBSR route
     (MAXK_FUSED_MASK=0) within rtol 1e-6. On the card K5 and K2 both fuse
-    each product into its sum and the losses are equal (chip_smoke.py
-    phase 19); K2's plain version rounds the product first."""
+    each product into its sum and the losses are equal
+    (test_torch_card_models.py::test_sage_under_the_gather_mode); K2's
+    plain version rounds the product first."""
     ds = make_synthetic_dataset(n_nodes=300, avg_degree=8.0, n_classes=5,
                                 in_size=24, seed=3)
     cfg = types.SimpleNamespace(

@@ -36,7 +36,6 @@ import maxk_tpu.train.loop as jax_loop
 from maxk_tpu.data import warp4 as jax_warp4
 from maxk_tpu.data.loaders import load_csr_binary as jax_load_csr_binary
 
-import chip_smoke as cs
 import maxk_tpu_torch.data.datasets as port_datasets
 import maxk_tpu_torch.train.loop as port_loop
 from maxk_tpu_torch.bench.harness import PROTOCOL
@@ -136,7 +135,6 @@ def test_golden_datasets_equal_the_jax_tools(monkeypatch, capsys):
     for metric in (None, *golden_accuracy.MULTILABEL_METRICS):
         golden_accuracy.golden_dataset(metric)
     assert seen == made
-    assert golden_accuracy.GOLDEN_DATASET == cs.GOLDEN_DATASET
 
 
 def test_cfg_equals_the_jax_tools():
@@ -198,34 +196,38 @@ def test_golden_run_counts_and_reports(monkeypatch):
     assert again.best_test == run["best_test"]
 
 
-def test_chip_smoke_golden_rows_are_baseline_md():
-    """Every case of the tool has a chip_smoke golden row, named for it,
-    whose value is its BASELINE.md row."""
+def test_golden_rows_are_baseline_md():
+    """Every case of the tool has a golden row, named for it, whose value
+    is its BASELINE.md row."""
     text = (ROOT / "BASELINE.md").read_text()
     for model, nonlinear, k, metric in golden_accuracy.golden_cases():
-        name = cs.golden_name(model, nonlinear, k, metric)
-        assert cs.GOLDEN_CASES[name] == (model, nonlinear, k, metric)
+        name = golden_accuracy.golden_name(model, nonlinear, k, metric)
+        assert golden_accuracy.GOLDEN_CASES[name] == (model, nonlinear, k,
+                                                      metric)
         first = metric or model
         cells = f"| {first} | {nonlinear} | {k or '—'} |"
         line = next(ln for ln in text.splitlines() if ln.startswith(cells))
-        assert float(line.split("|")[5]) == cs.GOLDEN_BEST_TEST[name], line
+        assert (float(line.split("|")[5])
+                == golden_accuracy.GOLDEN_BEST_TEST[name]), line
 
 
-def test_chip_smoke_floor_is_one_sided():
-    """Phase 21's rows are held to BASELINE.md - GOLDEN_TOL from below
-    only."""
-    name = cs.golden_name("sage", "maxk", 16, None)
-    assert name in cs.GOLDEN_FLOOR_ROWS
+def test_golden_floor_is_one_sided():
+    """The rows but the maxk k = 32 single-label ones are held to
+    BASELINE.md - GOLDEN_TOL from below only."""
+    name = golden_accuracy.golden_name("sage", "maxk", 16, None)
+    assert name in golden_accuracy.GOLDEN_FLOOR_ROWS
     runs = [dict(model=name, seed=s, best_test=t)
             for s, t in zip(range(97, 105), [0.99] * 8)]
-    high = cs.golden_row(name, runs)
-    assert high["held"] == "floor" and high["gap"] > cs.GOLDEN_TOL
-    cs.check_golden(high)
-    low = cs.golden_row(name, [dict(r, best_test=0.92) for r in runs])
+    high = golden_accuracy.golden_row(name, runs)
+    assert (high["held"] == "floor"
+            and high["gap"] > golden_accuracy.GOLDEN_TOL)
+    golden_accuracy.check_golden(high)
+    low = golden_accuracy.golden_row(
+        name, [dict(r, best_test=0.92) for r in runs])
     with pytest.raises(RuntimeError, match="below"):
-        cs.check_golden(low)
-    # The maxk k = 32 rows stay two-sided (phases 11 and 16).
-    assert cs.golden_row("sage", runs)["held"] == "row"
+        golden_accuracy.check_golden(low)
+    # The maxk k = 32 rows stay two-sided.
+    assert golden_accuracy.golden_row("sage", runs)["held"] == "row"
 
 
 # -- generate_meta ------------------------------------------------------------

@@ -17,9 +17,10 @@ OTHER_CHECKOUT at a copy of this tree with kThreads changed in
 topk_wide.cu.) The inputs are float32 at k = 32: (a) randn and (b) integer ties
 in [-3, 3], at (16384, 2048) and at (16384, 8192). On each input both
 builds' two entries must give the same bits as the plain versions; then
-each entry of each build is timed with chip_smoke.time_ms twice over in
-the order other, this, this, other. One JSON line per input and entry,
-then one with both builds' ptxas registers and spills and the
+each entry of each build is timed with bench/timing.py's time_fn (a
+sample of 20 calls) twice over in the order other, this, this, other.
+One JSON line per input and entry, then one with both builds' ptxas
+registers and spills and the
 instruction count of the descent loop (the loop that holds the warp sum,
 REDUX; k1_ab.loop_holding) of each entry's kernel for rows in shared
 memory and 16-byte aligned (the other tree's own kernel where it has one
@@ -37,8 +38,9 @@ from pathlib import Path
 
 import torch
 
-import chip_smoke
-from chip_smoke import check, descent_steps, emit, time_ms
+from maxk_tpu_torch.bench.kernel_table import (check, descent_steps, emit,
+                                               ptxas_summary)
+from maxk_tpu_torch.bench.timing import time_fn
 from k1_ab import build, loop_holding
 
 SHAPES = ((16384, 2048), (16384, 8192))
@@ -168,7 +170,8 @@ def main() -> int:
                 ms = {"other": [], "this": []}
                 for _ in range(2):
                     for n in ("other", "this", "this", "other"):
-                        ms[n].append(time_ms(lambda: run[n][entry](x, K)))
+                        ms[n].append(time_fn(
+                            lambda: run[n][entry](x, K), 3, 1).mean_ms)
                 emit("wide_ab", entry=entry, input=name, shape=[v, d], k=K,
                      mean_steps=float(steps.mean()),
                      rows_all_32_steps=float((steps == 32).double().mean()),
@@ -181,7 +184,7 @@ def main() -> int:
 
     emit("wide_sass", other=str(srcs["other"]), this=str(srcs["this"]),
          takes_plan=with_plan,
-         ptxas={n: chip_smoke.ptxas_summary(r) for n, r in ptxas.items()},
+         ptxas={n: ptxas_summary(r) for n, r in ptxas.items()},
          descent_loop={n: descent_loops(libs[n], args.out, n)
                        for n in srcs})
     print(smi)
